@@ -1,0 +1,420 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (``ray_tpu_torch``) on one GPU.
+
+    python3 chip_smoke.py
+
+Run from the root of a checkout, on a machine with an NVIDIA H100 (or
+another sm_90a card), nvcc and a CUDA build of PyTorch.  It builds every
+kernel of the port's main path from the sources in the checkout, holds
+each against its plain PyTorch version, times it, drives the main path
+through the entry points a user would call, and checks the results:
+
+1. card name and power limit (nvidia-smi);
+2. kernel build, with its time and ptxas register report;
+3. flash forward kernel vs its plain version, bf16, at four shapes;
+4. kernel time vs its bound, the plain version and PyTorch's SDPA
+   (timed as a yardstick only; the port never calls it);
+5. llama_440m forward, attention_impl="flash", bf16, B=4 x S=2048, random
+   weights from a seed: finite logits, 24 kernel launches, agreement
+   with the same forward under attention_impl="dot";
+6. LLMServer(llama_440m, max_slots=8, max_len=512) answering 8
+   concurrent requests (bf16: TTFT and decode tok/s), then an f32 engine
+   whose first tokens must equal the argmax of the port's forward;
+7. one JSON line per kernel, then the result line.
+
+``--profile DIR`` adds a torch.profiler pass over the forward and over
+one more round of requests, and writes op tables under ``DIR``.
+
+Any failed check exits non-zero before the result line is printed.  It
+also exits non-zero, with no result, when no CUDA device is present or
+the ``ray_tpu_torch`` package is not beside this script.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+
+# Published dense peaks of one H100 SXM (NVIDIA data sheet): bf16 tensor
+# cores and HBM3 bandwidth.
+PEAK_BF16_FLOPS = 989e12
+PEAK_HBM_BYTES_S = 3.35e12
+
+# Tolerances.  Kernel vs plain version on the same bf16 inputs: o is
+# rounded to bf16 (ulp 2**-8 relative) and p is rounded to bf16 against a
+# running rather than global max, so |do| stays within a few bf16 ulps of
+# |o| (|o| is mostly below 1 at these shapes; the largest |do| measured
+# on an H100 is 3.9e-3); lse is an f32 log-sum-exp of identical f32
+# scores summed in another order.
+TOL_O = 1e-2
+TOL_LSE = 1e-3
+# llama_440m bf16 logits against an f32 reference: the flash path's max
+# and mean error may exceed the plain dot path's by at most this factor
+# (both are bf16 rounding compounded over 24 layers; the kernel rounds p
+# and o to bf16 at other points than the plain path does).
+TOL_ERR_RATIO = 1.5
+
+
+def fail(msg: str) -> None:
+    print(f"FAIL: {msg}", flush=True)
+    sys.exit(1)
+
+
+def phase(name: str, msg: str) -> None:
+    print(f"[{name}] {msg}", flush=True)
+
+
+def time_ms(fn, reps: int = 20, rounds: int = 5) -> float:
+    """Median over ``rounds`` of the mean time of ``reps`` back-to-back
+    calls, by CUDA events, after a warm-up."""
+    import torch
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(rounds):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        end.synchronize()
+        out.append(start.elapsed_time(end) / reps)
+    return statistics.median(out)
+
+
+def attention_cost(B, Hq, Sq, Sk, D, causal):
+    """FLOP and bytes one flash forward call needs at these shapes
+    (causal: only the visible (row, key) pairs), and its bound in ms."""
+    if causal:
+        pairs = sum(min(i + 1, Sk) for i in range(Sq))
+    else:
+        pairs = Sq * Sk
+    flops = 4.0 * B * Hq * D * pairs  # QK^T and PV, 2 FLOP per MAC
+    # q, k, v read once (k/v at Hq heads here: MHA shapes), o and lse
+    # written once.
+    nbytes = 2.0 * B * Hq * D * (Sq + 2 * Sk + Sq) + 4.0 * B * Hq * Sq
+    t_ops = flops / PEAK_BF16_FLOPS * 1e3
+    t_bytes = nbytes / PEAK_HBM_BYTES_S * 1e3
+    return flops, nbytes, max(t_ops, t_bytes), (
+        "operations" if t_ops >= t_bytes else "bytes")
+
+
+def attention_inputs(torch, shape, seed, layout, scaled=True):
+    """q (scaled by D**-0.5 unless ``scaled`` is False), k, v in bf16 on
+    the card as (B, H, S, D) tensors: contiguous (``"bhsd"``) or views of
+    (B, S, H, D) tensors (``"bshd"``, the layout the model hands the
+    kernel)."""
+    B, Hq, Hkv, Sq, Sk, D = shape
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+
+    def randn(b, h, s, d):
+        if layout == "bhsd":
+            return torch.randn(b, h, s, d, generator=g, device="cuda"
+                               ).to(torch.bfloat16)
+        return torch.randn(b, s, h, d, generator=g, device="cuda"
+                           ).to(torch.bfloat16).transpose(1, 2)
+
+    q = randn(B, Hq, Sq, D)
+    return (q * D ** -0.5 if scaled else q, randn(B, Hkv, Sk, D),
+            randn(B, Hkv, Sk, D))
+
+
+def check_kernel(fa, torch, shape, causal, seed, layout, padded=False):
+    """Kernel vs plain version on the same bf16 inputs on the card.
+    Returns (max|do|, max|dlse|).  ``padded`` runs flash_attention_causal
+    (pad S to a multiple of 128, scale, kernel, slice) for o, and the
+    kernel on that padded problem for lse; both are held against the
+    plain version on the padded problem, at the unpadded rows."""
+    B, Hq, Hkv, Sq, Sk, D = shape
+    if padded:
+        q, k, v = attention_inputs(torch, shape, seed, "bshd", scaled=False)
+        qs, ks, vs = (t.transpose(1, 2) for t in (q, k, v))  # (B, S, H, D)
+        o = fa.flash_attention_causal(qs, ks, vs).transpose(1, 2)
+        scale = torch.tensor(D ** -0.5, dtype=torch.bfloat16)
+        pad = (0, 0, 0, 0, 0, -Sq % 128)
+        qp, kp, vp = (torch.nn.functional.pad(t, pad).transpose(1, 2)
+                      for t in (qs * scale, ks, vs))
+        _, lse = fa._fwd(qp, kp, vp, True)
+        o_ref, lse_ref = fa._fwd_reference(qp, kp, vp, True)
+        o_ref, lse, lse_ref = (t[:, :, :Sq] for t in (o_ref, lse, lse_ref))
+    else:
+        q, k, v = attention_inputs(torch, shape, seed, layout)
+        o, lse = fa._fwd(q, k, v, causal)
+        o_ref, lse_ref = fa._fwd_reference(q, k, v, causal)
+    torch.cuda.synchronize()
+    if not (torch.isfinite(o).all() and torch.isfinite(lse).all()):
+        fail(f"kernel output not finite at {shape}")
+    return ((o.float() - o_ref.float()).abs().max().item(),
+            (lse - lse_ref).abs().max().item())
+
+
+def run_requests(server, prompts, max_new):
+    async def go():
+        return await asyncio.gather(*[
+            server.generate({"prompt": p, "max_new_tokens": max_new})
+            for p in prompts])
+
+    t0 = time.perf_counter()
+    outs = asyncio.run(go())
+    return outs, time.perf_counter() - t0
+
+
+def profile_run(fn, label: str, out_dir: str) -> None:
+    """Run ``fn`` once under torch.profiler; print the device busy share
+    of the wall time and write the op tables (by device time and by host
+    time) to ``out_dir/profile_<label>.txt``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    ka = prof.key_averages()
+    # Kernels and copies only: an operator's row repeats its kernels'.
+    on_device = [e for e in ka
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+    device_s = sum(e.self_device_time_total for e in on_device) / 1e6
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, f"profile_{label}.txt")
+    with open(path, "w") as f:
+        f.write(f"{label}: wall {wall:.4f} s (under the profiler), device "
+                f"busy {device_s:.4f} s\n\n")
+        f.write(ka.table(sort_by="self_device_time_total", row_limit=25))
+        f.write("\n\n")
+        f.write(ka.table(sort_by="self_cpu_time_total", row_limit=25))
+    top = sorted(on_device, key=lambda e: -e.self_device_time_total)[:5]
+    # Where the host waited for the card: stream/device syncs (a
+    # pageable copy makes one) and event syncs (the engine's token
+    # harvests).
+    syncs = {e.key: e.count for e in ka if e.key in (
+        "cudaStreamSynchronize", "cudaDeviceSynchronize",
+        "cudaEventSynchronize")}
+    phase("profile", f"{label}: wall {wall * 1e3:.1f} ms, device busy "
+          f"{device_s * 1e3:.1f} ms ({100 * device_s / wall:.1f}%), host "
+          f"syncs {syncs}, top device ops: " + "; ".join(
+              f"{e.key[:40]} {e.self_device_time_total / 1e3:.1f} ms"
+              for e in top) + f" (tables in {path})")
+
+
+def main() -> None:
+    import torch
+
+    profile_dir = None
+    if "--profile" in sys.argv[1:]:
+        i = sys.argv.index("--profile")
+        if i + 1 >= len(sys.argv):
+            fail("--profile needs an output directory")
+        profile_dir = os.path.abspath(sys.argv[i + 1])
+
+    if not torch.cuda.is_available():
+        fail("no CUDA device: this script runs the port on the GPU")
+    sys.path.insert(0, HERE)
+    try:
+        import ray_tpu_torch
+    except ImportError as e:
+        fail(f"ray_tpu_torch is not beside chip_smoke.py ({e})")
+    if not os.path.abspath(ray_tpu_torch.__file__).startswith(HERE + os.sep):
+        fail(f"ray_tpu_torch imported from {ray_tpu_torch.__file__}, "
+             f"not from this checkout")
+    from ray_tpu_torch.core.device import resolve_device
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.ops import _build
+    from ray_tpu_torch.ops import flash_attention as fa
+    from ray_tpu_torch.serve.llm import LLMServer
+
+    resolve_device(None)  # TF32 off, f32-accumulated bf16 matmuls
+    kind = torch.cuda.get_device_name(0)
+    count = torch.cuda.device_count()
+
+    # 1. The card.
+    try:
+        smi = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=60).stdout.strip()
+    except (OSError, subprocess.TimeoutExpired):
+        smi = ""
+    card = smi.splitlines()[0] if smi else f"{kind}, power limit not read"
+    print(card, flush=True)
+    phase("card", f"torch {torch.__version__} cuda {torch.version.cuda} "
+          f"device {kind} x{count}")
+
+    # 2. Build.
+    t0 = time.perf_counter()
+    fa.build_kernels()
+    phase("build", f"flash_fwd built in {time.perf_counter() - t0:.1f}s")
+    for line in _build.build_logs.get("flash_fwd", "").splitlines():
+        if "registers" in line or "spill" in line:
+            phase("build", "ptxas " + line.strip())
+
+    # 3. Kernel vs plain version.
+    # (B, Hq, Hkv, Sq, Sk, D).  The first case is the main path's shape
+    # and layout: (B, H, S, D) views of the model's (B, S, H, D) tensors.
+    cases = [
+        ("causal", (4, 8, 8, 2048, 2048, 128), True, "bshd", False),
+        ("gqa", (2, 8, 2, 1024, 1024, 128), True, "bhsd", False),
+        ("noncausal", (2, 8, 4, 1000, 1500, 128), False, "bhsd", False),
+        ("padded", (2, 8, 8, 2047, 2047, 128), True, "bshd", True),
+    ]
+    worst = 0.0
+    for i, (name, shape, causal, layout, padded) in enumerate(cases):
+        do, dlse = check_kernel(fa, torch, shape, causal, seed=i,
+                                layout=layout, padded=padded)
+        ok = do <= TOL_O and dlse <= TOL_LSE
+        phase("check", f"flash_fwd {name} {shape} {layout} "
+              f"causal={causal}: max|do|={do:.3e} (tol {TOL_O}) "
+              f"max|dlse|={dlse:.3e} (tol {TOL_LSE}) "
+              f"{'ok' if ok else 'MISMATCH'}")
+        if not ok:
+            fail(f"flash_fwd disagrees with its plain version at {name}")
+        worst = max(worst, do)
+
+    # 4. Time at the main path's shape and layout.
+    B, H, S, D = 4, 8, 2048, 128
+    q, k, v = attention_inputs(torch, (B, H, H, S, S, D), 7, "bshd")
+    ms = time_ms(lambda: fa._fwd(q, k, v, True))
+    plain_ms = time_ms(lambda: fa._fwd_reference(q, k, v, True), reps=3,
+                       rounds=3)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    library_ms = time_ms(lambda: sdpa(q, k, v, is_causal=True, scale=1.0))
+    flops, nbytes, bound_ms, bound_by = attention_cost(B, H, S, S, D, True)
+    phase("time", f"flash_fwd (4,8,2048,128) causal bf16 (B,S,H,D) "
+          f"views: {ms:.4f} ms "
+          f"({flops / ms / 1e9:.1f} TFLOP/s), bound {bound_ms:.4f} ms "
+          f"({bound_by}; {flops:.3e} FLOP, {nbytes:.3e} B), plain "
+          f"{plain_ms:.4f} ms, sdpa {library_ms:.4f} ms")
+    del q, k, v
+
+    # 5. llama_440m forward through the kernel.
+    cfg = llama.LlamaConfig.llama_440m(dtype=torch.bfloat16)
+    params = llama.init_params(cfg, seed=0, dtype=torch.bfloat16)
+    g = torch.Generator(device="cuda")
+    g.manual_seed(7)
+    tokens = torch.randint(0, cfg.vocab_size, (4, 2048), generator=g,
+                           device="cuda")
+    llama.forward(params, tokens, cfg)  # warm (cuBLAS handles, allocator)
+    torch.cuda.synchronize()
+    fa.reset_launch_counts()
+    t0 = time.perf_counter()
+    logits = llama.forward(params, tokens, cfg)
+    torch.cuda.synchronize()
+    fwd_s = time.perf_counter() - t0
+    fwd_launches = dict(fa.launch_counts)
+    phase("forward", f"llama_440m flash B=4 S=2048: {fwd_s * 1e3:.1f} ms, "
+          f"{4 * 2048 / fwd_s:.0f} tok/s, launches {fwd_launches}")
+    if fwd_launches["flash_fwd"] != cfg.n_layers:
+        fail(f"flash_fwd launched {fwd_launches['flash_fwd']} times, "
+             f"expected {cfg.n_layers}")
+    if logits.shape != (4, 2048, cfg.vocab_size) or \
+            not torch.isfinite(logits).all():
+        fail("llama_440m flash logits not finite / wrong shape")
+    # Both bf16 paths against one f32 reference (same weights, dot
+    # attention in f32): the kernel path must be as accurate as the
+    # plain path, whose error is bf16 rounding through 24 layers.
+    dot = llama.forward(params, tokens, llama.LlamaConfig.llama_440m(
+        dtype=torch.bfloat16, attention_impl="dot"))
+    ref = llama.forward({k: v.float() if torch.is_tensor(v) else
+                         {kk: vv.float() for kk, vv in v.items()}
+                         for k, v in params.items()}, tokens,
+                        llama.LlamaConfig.llama_440m(
+                            dtype=torch.float32, attention_impl="dot"))
+    errs = {}
+    for name, out in (("flash", logits), ("dot", dot)):
+        d = (out.float() - ref).abs()
+        errs[name] = (d.max().item(), d.mean().item(),
+                      (out.argmax(-1) == ref.argmax(-1)).float().mean()
+                      .item())
+    ratio = max(errs["flash"][0] / errs["dot"][0],
+                errs["flash"][1] / errs["dot"][1])
+    ok = ratio <= TOL_ERR_RATIO
+    phase("forward", "vs f32 dot reference: " + ", ".join(
+        f"{n} max|d|={e[0]:.3e} mean|d|={e[1]:.3e} argmax agree "
+        f"{e[2]:.4f}" for n, e in errs.items())
+        + f"; flash/dot error ratio {ratio:.3f} (tol {TOL_ERR_RATIO}) "
+        + ("ok" if ok else "MISMATCH"))
+    if not ok:
+        fail("llama_440m flash forward is less accurate than dot attention")
+    if profile_dir:
+        profile_run(lambda: llama.forward(params, tokens, cfg),
+                    "forward_flash", profile_dir)
+    del logits, dot, ref, params, tokens
+    torch.cuda.empty_cache()
+
+    # 6. The dense LLMServer at llama_440m.
+    rng = torch.Generator().manual_seed(11)
+    lengths = [24, 48, 77, 100, 128, 150, 180, 200]
+    prompts = [torch.randint(1, 32000, (n,), generator=rng).tolist()
+               for n in lengths]
+    fa.reset_launch_counts()
+    server = LLMServer(model_preset="llama_440m", max_slots=8, max_len=512,
+                       seed=0)
+    try:
+        outs, wall = run_requests(server, prompts, 32)
+        serve_launches = dict(fa.launch_counts)
+        if profile_dir:
+            profile_run(lambda: run_requests(server, prompts, 32),
+                        "serve_bf16", profile_dir)
+    finally:
+        server.shutdown()
+    if any(len(o["tokens"]) != 32 for o in outs):
+        fail(f"LLMServer returned {[len(o['tokens']) for o in outs]} tokens")
+    ttft = sorted(o["ttft_ms"] for o in outs)
+    # Decode rate once every request has its first token.
+    decode_s = wall - ttft[-1] / 1e3
+    phase("serve", f"llama_440m bf16: 8 requests x 32 tokens in {wall:.3f}s"
+          f" ({8 * 32 / wall:.1f} tok/s end to end), decode "
+          f"{8 * 31 / decode_s:.1f} tok/s, TTFT median "
+          f"{statistics.median(ttft):.1f} ms max {ttft[-1]:.1f} ms, "
+          f"launches {serve_launches} (prefill uses dot attention)")
+
+    llama.LlamaConfig.llama_440m_f32 = classmethod(
+        lambda cls, **kw: cls.llama_440m(dtype=torch.float32, **kw))
+    f32_cfg = llama.LlamaConfig.llama_440m_f32(attention_impl="dot")
+    server = LLMServer(model_preset="llama_440m_f32", max_slots=8,
+                       max_len=512, seed=0)
+    try:
+        outs, _ = run_requests(server, prompts, 4)
+        params = server.params
+        firsts = [o["tokens"][0] for o in outs]
+        expect = []
+        for p in prompts:
+            lg = llama.forward(params, torch.tensor([p], device="cuda"),
+                               f32_cfg)
+            expect.append(int(lg[0, -1].argmax()))
+    finally:
+        server.shutdown()
+    phase("serve", f"llama_440m f32 first tokens {firsts} vs forward "
+          f"argmax {expect}: {'ok' if firsts == expect else 'MISMATCH'}")
+    if firsts != expect:
+        fail("LLMServer first tokens differ from the forward's argmax")
+
+    # 7. Kernels, then the result.
+    print(json.dumps({"kernels": [{
+        "name": "flash_fwd", "route": "cuda",
+        "source": "ray_tpu_torch/ops/csrc/flash_fwd.cu",
+        "replaces": "ray_tpu/ops/flash_attention.py:96",
+        "launches": fwd_launches["flash_fwd"],
+        "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": library_ms}]}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind, "count": count}}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

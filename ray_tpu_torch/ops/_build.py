@@ -1,0 +1,85 @@
+"""Build the port's CUDA kernels at first use and load them with ctypes.
+
+Each kernel source under ``ops/csrc/`` has a plain C interface and is
+compiled by ``nvcc`` for ``sm_90a`` into its own shared library under
+``ops/_build/`` (listed in ``.gitignore``).  The library's file name
+carries a hash of the source and flags, so an edited source rebuilds
+and an unchanged one is reused.  Nothing here runs at import: the CPU
+tests import every module and have no ``nvcc``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import Dict, List, Optional
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent / "_build"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo",
+              "-Xptxas", "-v"]
+
+_libs: Dict[str, ctypes.CDLL] = {}
+_lock = threading.Lock()
+# ptxas register/spill report of the last build of each library.
+build_logs: Dict[str, str] = {}
+
+
+def nvcc_path() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(default):
+        return default
+    raise RuntimeError("nvcc not found: the CUDA kernels are built at "
+                       "first use and need the CUDA toolkit")
+
+
+def library_path(name: str, sources: List[str]) -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources:
+        h.update((CSRC / src).read_bytes())
+    return BUILD_DIR / f"lib{name}_{h.hexdigest()[:12]}.so"
+
+
+def build(name: str, sources: List[str]) -> Path:
+    """Compile ``sources`` (names under ``csrc/``) into
+    ``_build/lib<name>_<hash>.so`` unless it exists.  Raises with the
+    compiler's output on failure."""
+    out = library_path(name, sources)
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
+           *[str(CSRC / s) for s in sources]]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {name}:\n{proc.stderr}")
+    build_logs[name] = proc.stderr
+    os.replace(tmp, out)  # atomic: a concurrent loader never sees half
+    return out
+
+
+def load(name: str, sources: List[str],
+         signatures: Optional[Dict[str, tuple]] = None) -> ctypes.CDLL:
+    """Build if needed, then load once per process.  ``signatures``
+    maps a C function to ``(restype, [argtypes])``: pointers and the
+    stream must be ``c_void_p`` or ctypes cuts them to 32 bits."""
+    with _lock:
+        lib = _libs.get(name)
+        if lib is None:
+            lib = ctypes.CDLL(str(build(name, sources)))
+            for fn, (restype, argtypes) in (signatures or {}).items():
+                f = getattr(lib, fn)
+                f.restype = restype
+                f.argtypes = argtypes
+            _libs[name] = lib
+        return lib
