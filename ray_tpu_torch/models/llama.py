@@ -1,29 +1,39 @@
 """Llama-family decoder LM in PyTorch (counterpart of
-``ray_tpu/models/llama.py``), inference path.
+``ray_tpu/models/llama.py``): forward, loss, train step, KV-cache decode.
 
 - Params are a nested dict of tensors under the JAX package's keys, with
   every per-layer weight stacked on a leading ``(L, ...)`` axis, so
   weights convert 1:1 (``models/convert.py``).  :class:`LlamaModel`
   holds the same tensors as an ``nn.Module``.
 - Functions on tensors mirror the JAX ones; a Python loop over layers
-  replaces ``lax.scan``.  Every entry point runs under
-  ``torch.no_grad()``: this slice ports inference only.
+  replaces ``lax.scan``.  ``forward`` and ``loss_fn`` are differentiable
+  (the train step takes their gradients through autograd, each layer
+  under the config's remat policy); the serving functions run under
+  ``torch.no_grad()``.
 - Numerics follow the reference: matmuls accumulate in f32 and cast,
-  norms and softmax run in f32, rope multiplies in x's dtype.
+  norms and softmax run in f32, rope multiplies in x's dtype.  Training
+  keeps f32 params and casts them to ``config.dtype`` at each matmul.
 - ``attention_impl="flash"`` routes attention through the sm_90a flash
-  forward kernel (``ops/flash_attention.py``); the KV-cache serving path
-  uses plain attention, as the JAX package does.
+  kernels (``ops/flash_attention.py``: forward, and the dq and dk/dv
+  backward behind a ``torch.autograd.Function``); the KV-cache serving
+  path uses plain attention, as the JAX package does.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.profiler import record_function
+from torch.utils.checkpoint import checkpoint
 
 from ..core.device import DeviceLike, check_on, resolve_device, to_device
+from ..train.optim import (ClipAdamW, apply_updates, fused_adamw_init,
+                           fused_adamw_update, fused_hyperparams,
+                           global_norm, tree_leaves, tree_unflatten)
 
 Params = Dict[str, Any]
 
@@ -41,8 +51,18 @@ class LlamaConfig:
     rope_theta: float = 500000.0
     norm_eps: float = 1e-5
     dtype: torch.dtype = torch.bfloat16
-    # "dot" (plain attention) or "flash" (the CUDA flash kernel).
+    # "dot" (plain attention) or "flash" (the CUDA flash kernels).
     attention_impl: str = "dot"
+    remat: bool = True
+    # Rematerialization policy of the per-layer checkpoint wrapper (one
+    # of REMAT_POLICIES; ignored when remat=False or without grad):
+    # "full" saves nothing and recomputes the layer in the backward;
+    # "dots" saves the outputs of products without batch dims
+    # (aten.mm), "dots_saveable" those of aten.bmm too; "attn" keeps only
+    # the flash residuals (FLASH_RESIDUAL_NAMES), so the backward never
+    # re-runs the flash forward while the FFN is recomputed; "attn_ffn"
+    # also keeps silu(gate)*up.
+    remat_policy: str = "full"
     tie_embeddings: bool = False
     # Not ported yet; a non-zero value raises (ROADMAP queue A).
     pipeline_microbatches: int = 0
@@ -78,7 +98,7 @@ class LlamaConfig:
         """Tiny config for tests (runs on the CPU in well under 1 s)."""
         base = dict(vocab_size=256, hidden_size=64, n_layers=2, n_heads=4,
                     n_kv_heads=2, head_dim=16, intermediate_size=128,
-                    max_seq_len=128, rope_theta=10000.0,
+                    max_seq_len=128, rope_theta=10000.0, remat=False,
                     tie_embeddings=True)
         base.update(kw)
         return cls(**base)
@@ -95,12 +115,14 @@ class LlamaConfig:
     @classmethod
     def llama_440m(cls, **kw) -> "LlamaConfig":
         """The flash preset: hidden 1024, 24 layers, 8 heads of 128,
-        vocab 32000, tied head (~440M params)."""
+        vocab 32000, tied head (~440M params); remat_policy="attn"
+        keeps the flash residuals so the backward never re-runs the
+        attention forward."""
         base = dict(vocab_size=32000, hidden_size=1024, n_layers=24,
                     n_heads=8, n_kv_heads=8, head_dim=128,
                     intermediate_size=4096, max_seq_len=2048,
                     rope_theta=10000.0, tie_embeddings=True,
-                    attention_impl="flash")
+                    attention_impl="flash", remat_policy="attn")
         base.update(kw)
         return cls(**base)
 
@@ -176,8 +198,19 @@ def init_params(config: LlamaConfig, seed: int = 0,
     return params
 
 
-def _layer(params: Params, i: int) -> Dict[str, torch.Tensor]:
-    return {k: w[i] for k, w in params["layers"].items()}
+def param_count(params: Params) -> int:
+    return sum(t.numel() for t in tree_leaves(params))
+
+
+def _layers(params: Params):
+    """Every layer's weights as a dict per layer, unbound from the
+    stacked ``(L, ...)`` tensors in one op each.  Under autograd this
+    matters: the backward of ``w[i]`` writes a zero-filled gradient of
+    the whole stack per layer (L x the stack's bytes per weight), the
+    backward of one unbind stacks the L gradients once."""
+    names = list(params["layers"])
+    per_weight = [params["layers"][k].unbind(0) for k in names]
+    return [dict(zip(names, ws)) for ws in zip(*per_weight)]
 
 
 def _head(params: Params, config: LlamaConfig) -> torch.Tensor:
@@ -225,6 +258,37 @@ class LlamaModel(torch.nn.Module):
 # ---------------------------------------------------------------------------
 # Building blocks
 # ---------------------------------------------------------------------------
+
+REMAT_POLICIES = ("full", "dots", "dots_saveable", "attn", "attn_ffn")
+# The products each selective policy keeps: the counterparts of JAX's
+# dots_with_no_batch_dims_saveable and dots_saveable.
+_SAVED_PRODUCTS = {"dots": ("mm",), "dots_saveable": ("mm", "bmm")}
+
+
+def _remat_policy(config: LlamaConfig):
+    """Checks ``config.remat_policy``; returns the ``context_fn`` of
+    ``torch.utils.checkpoint`` for the selective policies ("dots",
+    "dots_saveable": save the listed aten products' outputs, recompute
+    the rest), else None ("full" saves nothing; "attn"/"attn_ffn" are
+    segments around the flash call, see :func:`_remat_layer`)."""
+    if config.remat_policy not in REMAT_POLICIES:
+        raise ValueError(
+            f"unknown remat_policy {config.remat_policy!r} "
+            f"(choose from {REMAT_POLICIES})")
+    products = _SAVED_PRODUCTS.get(config.remat_policy)
+    if products is None:
+        return None
+    from torch.utils.checkpoint import (CheckpointPolicy,
+                                        create_selective_checkpoint_contexts)
+
+    saved = {getattr(torch.ops.aten, name).default for name in products}
+
+    def policy(ctx, op, *args, **kwargs):
+        return (CheckpointPolicy.MUST_SAVE if op in saved
+                else CheckpointPolicy.PREFER_RECOMPUTE)
+
+    return functools.partial(create_selective_checkpoint_contexts, policy)
+
 
 def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x @ w with f32 accumulation, in x's dtype.  A bf16 product
@@ -331,10 +395,10 @@ def _qkv_rope(x: torch.Tensor, layer: Dict[str, torch.Tensor], sin, cos,
     return apply_rope(q, sin, cos), apply_rope(k, sin, cos), v
 
 
-def _attn_out_mlp(x: torch.Tensor, attn: torch.Tensor,
-                  layer: Dict[str, torch.Tensor],
-                  config: LlamaConfig) -> torch.Tensor:
-    """Output projection + MLP half of the block."""
+def _attn_out_act(x: torch.Tensor, attn: torch.Tensor,
+                  layer: Dict[str, torch.Tensor], config: LlamaConfig):
+    """Output projection, residual, and the FFN activation
+    ``silu(gate) * up`` (the reference's ``ffn_act``); returns both."""
     c = config
     B, S, _ = x.shape
     dt = c.dtype
@@ -342,13 +406,62 @@ def _attn_out_mlp(x: torch.Tensor, attn: torch.Tensor,
     h = rms_norm(x, layer["mlp_norm"], c.norm_eps)
     gate = matmul(h, layer["w_gate"].to(dt))
     up = matmul(h, layer["w_up"].to(dt))
-    return x + matmul(F.silu(gate) * up, layer["w_down"].to(dt))
+    return x, F.silu(gate) * up
+
+
+def _ffn_down(x: torch.Tensor, ffn_act: torch.Tensor,
+              layer: Dict[str, torch.Tensor],
+              config: LlamaConfig) -> torch.Tensor:
+    return x + matmul(ffn_act, layer["w_down"].to(config.dtype))
+
+
+def _attn_out_mlp(x: torch.Tensor, attn: torch.Tensor,
+                  layer: Dict[str, torch.Tensor],
+                  config: LlamaConfig) -> torch.Tensor:
+    """Output projection + MLP half of the block."""
+    x, ffn_act = _attn_out_act(x, attn, layer, config)
+    return _ffn_down(x, ffn_act, layer, config)
 
 
 def decoder_layer(x, layer, sin, cos, positions, config, attention_fn):
     q, k, v = _qkv_rope(x, layer, sin, cos, config)
     attn = attention_fn(q, k, v, positions)
     return _attn_out_mlp(x, attn, layer, config)
+
+
+def _remat_layer(x, layer, sin, cos, positions, config, attention_fn):
+    """``decoder_layer`` under ``config.remat_policy``, each checkpointed
+    segment recomputed in the backward (``torch.utils.checkpoint``,
+    non-reentrant).  "attn"/"attn_ffn" on the flash path checkpoint the
+    parts before and after the flash call and leave the call between
+    them: ``_FlashCore`` keeps its five residuals in its ctx, which is
+    what the reference's policy saves by name, so the backward never
+    re-runs the flash forward.  (Selective checkpointing alone cannot do
+    this: it does not see inside an autograd Function.)  "attn_ffn" also
+    keeps ``silu(gate)*up``: the down projection runs outside any
+    segment, so autograd saves its input.  Without flash there is no
+    flash residual to keep: "attn" is then "full", as in the reference,
+    and so is "attn_ffn", which recomputes ``silu(gate)*up`` too (the
+    reference keeps it; the math is the same)."""
+    c = config
+    policy = c.remat_policy
+    context_fn = _remat_policy(c)
+
+    def ckpt(fn, *args):
+        if context_fn is None:
+            return checkpoint(fn, *args, use_reentrant=False)
+        return checkpoint(fn, *args, use_reentrant=False,
+                          context_fn=context_fn)
+
+    if policy in ("attn", "attn_ffn") and c.attention_impl == "flash":
+        q, k, v = ckpt(_qkv_rope, x, layer, sin, cos, c)
+        attn = attention_fn(q, k, v, positions)
+        if policy == "attn":
+            return ckpt(_attn_out_mlp, x, attn, layer, c)
+        x, ffn_act = ckpt(_attn_out_act, x, attn, layer, c)
+        return _ffn_down(x, ffn_act, layer, c)
+    return ckpt(decoder_layer, x, layer, sin, cos, positions, c,
+                attention_fn)
 
 
 # ---------------------------------------------------------------------------
@@ -361,11 +474,13 @@ def _tokens_on(tokens, params: Params, device: DeviceLike) -> torch.Tensor:
     return torch.as_tensor(tokens, device=device).long()
 
 
-@torch.no_grad()
 def forward(params: Params, tokens, config: LlamaConfig,
             positions=None, device: DeviceLike = None) -> torch.Tensor:
     """Logits (B, S, V) for next-token prediction.  tokens: (B, S) ints.
-    Runs on ``device`` (the card unless ``"cpu"``); params must be there."""
+    Runs on ``device`` (the card unless ``"cpu"``); params must be there.
+    Differentiable: with ``config.remat``, a call whose layer weights
+    require grad runs each layer under the remat policy
+    (:func:`_remat_layer`)."""
     c = config
     if positions is not None and c.attention_impl != "dot":
         # The flash kernel masks on the raw row index, not positions —
@@ -384,16 +499,22 @@ def forward(params: Params, tokens, config: LlamaConfig,
         positions = torch.as_tensor(positions, device=tokens.device)
         attn_positions = positions
     attention_fn = _get_attention_fn(c)
+    layer_fn = decoder_layer
+    if c.remat:
+        _remat_policy(c)  # an unknown policy raises before any work
+        # Only a differentiated call has anything to save or recompute;
+        # an inference call skips the checkpoint machinery's host cost.
+        if torch.is_grad_enabled() and any(
+                w.requires_grad for w in params["layers"].values()):
+            layer_fn = _remat_layer
     x = params["embed_tokens"].to(c.dtype)[tokens]
     sin, cos = rope_table(positions, c.head_dim, c.rope_theta)
-    for i in range(c.n_layers):
-        x = decoder_layer(x, _layer(params, i), sin, cos, attn_positions,
-                          c, attention_fn)
+    for layer in _layers(params):
+        x = layer_fn(x, layer, sin, cos, attn_positions, c, attention_fn)
     x = rms_norm(x, params["final_norm"], c.norm_eps)
     return matmul(x, _head(params, c))
 
 
-@torch.no_grad()
 def loss_fn(params: Params, batch: Dict[str, Any], config: LlamaConfig,
             device: DeviceLike = None) -> torch.Tensor:
     """Mean next-token cross-entropy.  batch: tokens (B, S), optional
@@ -421,6 +542,114 @@ def loss_fn(params: Params, batch: Dict[str, Any], config: LlamaConfig,
         return nll.mean()
     mask = torch.as_tensor(mask, device=tokens.device)[:, 1:].float()
     return (nll * mask).sum() / mask.sum().clamp_min(1.0)
+
+
+# ---------------------------------------------------------------------------
+# Train step
+# ---------------------------------------------------------------------------
+
+def default_optimizer(learning_rate: float = 3e-4):
+    """The reference's optax chain ``clip_by_global_norm(1.0)`` then
+    ``adamw(learning_rate, weight_decay=0.1)``, as
+    ``train.optim.ClipAdamW``."""
+    return ClipAdamW(learning_rate, weight_decay=0.1, clip_norm=1.0)
+
+
+def _reject_optimizer_with_fused(optimizer, fused: bool) -> None:
+    if fused and optimizer is not None:
+        raise ValueError("fused=True replaces the optax chain; pass "
+                         "hyperparameters, not an optimizer")
+
+
+def init_train_state(config: LlamaConfig, seed: int = 0, optimizer=None,
+                     fused: bool = False,
+                     device: DeviceLike = None) -> Dict[str, Any]:
+    """``{"params", "opt_state", "step"}`` on ``device`` (the card unless
+    ``"cpu"``).  Params are ``init_params(config, seed)`` in f32, as the
+    reference keeps them (matmuls cast to ``config.dtype``).
+    ``fused=True`` pairs with ``make_train_step(fused=True)``: the
+    opt_state is a ``FusedAdamWState`` instead of the chain's state (same
+    contents: a count and two moment trees)."""
+    _reject_optimizer_with_fused(optimizer, fused)
+    dev = resolve_device(device)
+    params = init_params(config, seed=seed, dtype=torch.float32, device=dev)
+    if fused:
+        opt_state = fused_adamw_init(params)
+    else:
+        opt_state = (optimizer or default_optimizer()).init(params)
+    return {"params": params, "opt_state": opt_state,
+            "step": torch.zeros((), dtype=torch.int32, device=dev)}
+
+
+def value_and_grad(params: Params, batch: Dict[str, Any],
+                   config: LlamaConfig, device: DeviceLike = None):
+    """``(loss, grads)`` of :func:`loss_fn` through autograd; grads is a
+    tree like ``params`` (the counterpart of ``jax.value_and_grad``)."""
+    leaves = [t.detach().requires_grad_() for t in tree_leaves(params)]
+    with torch.enable_grad():
+        loss = loss_fn(tree_unflatten(params, leaves), batch, config,
+                       device=device)
+        grads = torch.autograd.grad(loss, leaves)
+    return loss.detach(), tree_unflatten(params, list(grads))
+
+
+def make_train_step(config: LlamaConfig, optimizer=None,
+                    donate: bool = True, fused: bool = False,
+                    learning_rate: float = 3e-4,
+                    device: DeviceLike = None) -> Callable:
+    """Returns ``train_step(state, batch) -> (state, metrics)``, metrics
+    ``{"loss", "grad_norm", "step"}`` as device tensors (no host sync).
+
+    The default updates with the optax chain's counterpart
+    (``default_optimizer``); ``fused=True`` with the fused AdamW
+    (``train/optim.py``: the same hyperparameters and clip semantics,
+    fewer passes over the params).  ``donate=True`` updates params,
+    moments and step IN PLACE (the counterpart of buffer donation: the
+    input state must not be used again); ``donate=False`` leaves the
+    input state untouched and returns new tensors.  The step runs on
+    ``device`` (the card unless ``"cpu"``); the state must be there."""
+    _reject_optimizer_with_fused(optimizer, fused)
+    dev = resolve_device(device)
+    if fused:
+        hp = fused_hyperparams(learning_rate)
+    elif optimizer is None:
+        optimizer = default_optimizer(learning_rate)
+
+    def step(state, batch):
+        params = state["params"]
+        check_on(params["embed_tokens"], dev, "state params")
+        loss, grads = value_and_grad(params, batch, config, device=dev)
+        if fused:
+            params, opt_state, gnorm = fused_adamw_update(
+                grads, state["opt_state"], params, inplace=donate, **hp)
+        else:
+            gnorm = global_norm(grads)
+            updates, opt_state = optimizer.update(
+                grads, state["opt_state"], params, inplace=donate)
+            params = apply_updates(params, updates, inplace=donate)
+        count = state["step"].add_(1) if donate else state["step"] + 1
+        new_state = {"params": params, "opt_state": opt_state,
+                     "step": count}
+        return new_state, {"loss": loss, "grad_norm": gnorm,
+                           "step": count.clone()}
+
+    return _AnnotatedStep(step)
+
+
+class _AnnotatedStep:
+    """Runs each train step under ``torch.profiler.record_function(
+    "train.step")``, so a profiler trace taken mid-training shows one
+    ``train.step`` range per step (the counterpart of the reference's
+    device annotation)."""
+
+    __slots__ = ("_step",)
+
+    def __init__(self, step: Callable):
+        self._step = step
+
+    def __call__(self, state, batch):
+        with record_function("train.step"):
+            return self._step(state, batch)
 
 
 # ---------------------------------------------------------------------------
@@ -456,8 +685,7 @@ def prefill_forward(params: Params, tokens: torch.Tensor,
     positions = torch.arange(P, device=tokens.device).expand(G, P)
     sin, cos = rope_table(positions, c.head_dim, c.rope_theta)
     ks, vs = [], []
-    for i in range(c.n_layers):
-        layer = _layer(params, i)
+    for layer in _layers(params):
         q, k, v = _qkv_rope(x, layer, sin, cos, c)
         x = _attn_out_mlp(x, dot_attention(q, k, v, positions), layer, c)
         ks.append(k)
@@ -505,8 +733,7 @@ def forward_with_cache(params: Params, tokens: torch.Tensor,
     rows = positions[:, :1].long().clamp(0, S - T) + \
         torch.arange(T, device=tokens.device)
     bidx = torch.arange(B, device=tokens.device)[:, None]
-    for i in range(c.n_layers):
-        layer = _layer(params, i)
+    for i, layer in enumerate(_layers(params)):
         q, k, v = _qkv_rope(x, layer, sin, cos, c)
         ck, cv = cache["k"][i], cache["v"][i]
         ck[bidx, rows] = k.to(ck.dtype)

@@ -16,6 +16,7 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 from typing import Dict, List, Optional
 
@@ -27,8 +28,10 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
-# ptxas register/spill report of the last build of each library.
+# ptxas register/spill report and nvcc wall seconds of the last build of
+# each library.
 build_logs: Dict[str, str] = {}
+build_seconds: Dict[str, float] = {}
 
 
 def nvcc_path() -> str:
@@ -52,17 +55,20 @@ def library_path(name: str, sources: List[str]) -> Path:
 def build(name: str, sources: List[str]) -> Path:
     """Compile ``sources`` (names under ``csrc/``) into
     ``_build/lib<name>_<hash>.so`` unless it exists.  Raises with the
-    compiler's output on failure."""
+    compiler's output on failure.  Safe to call from several threads or
+    processes at once: each nvcc writes its own temporary file."""
     out = library_path(name, sources)
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
     cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
            *[str(CSRC / s) for s in sources]]
+    t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {name}:\n{proc.stderr}")
+    build_seconds[name] = time.perf_counter() - t0
     build_logs[name] = proc.stderr
     os.replace(tmp, out)  # atomic: a concurrent loader never sees half
     return out
@@ -73,6 +79,9 @@ def load(name: str, sources: List[str],
     """Build if needed, then load once per process.  ``signatures``
     maps a C function to ``(restype, [argtypes])``: pointers and the
     stream must be ``c_void_p`` or ctypes cuts them to 32 bits."""
+    lib = _libs.get(name)  # loaded: no lock on the launch path
+    if lib is not None:
+        return lib
     with _lock:
         lib = _libs.get(name)
         if lib is None:

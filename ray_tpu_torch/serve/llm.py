@@ -238,8 +238,7 @@ class LLMServer:
             # Rows outside the attended prefix are not written either
             # (the reference's write mask only spans [0, s_active)).
             rows = torch.where(active & (lens < s_active), lens, trash)
-            for i in range(cfg.n_layers):
-                layer = llama._layer(params, i)
+            for i, layer in enumerate(llama._layers(params)):
                 q, kk, vv = llama._qkv_rope(x, layer, sin, cos, cfg)
                 ck, cv = cache["k"][i], cache["v"][i]
                 ck[bidx, rows] = kk[:, 0].to(ck.dtype)  # in place

@@ -1,13 +1,16 @@
-"""Parity of the port's flash forward (ray_tpu_torch.ops.flash_attention)
-with the JAX package's Pallas kernel, run in interpret mode on the CPU.
+"""Parity of the port's flash attention, forward and backward
+(ray_tpu_torch.ops.flash_attention), with the JAX package's Pallas
+kernels, run in interpret mode on the CPU.
 
-On the CPU the port's wrapper runs the kernel's plain version
-(``_fwd_reference``); the CUDA kernel itself is checked against that
-plain version on the card (``-m cuda``, and chip_smoke.py).
+On the CPU the port's wrappers run the kernels' plain versions
+(``_fwd_reference``, ``_bwd_reference``); the CUDA kernels themselves are
+checked against those plain versions on the card
+(``tests/test_torch_flash_kernels.py -m cuda``, and chip_smoke.py).
 """
 
 import importlib
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -89,11 +92,23 @@ def test_custom_positions_rejected():
 
 
 def test_requires_grad_raises():
+    """A call whose inputs require grad now returns gradients (finite,
+    one per input, in the inputs' shapes and dtypes); what still raises
+    is a backward call whose k/v are not at q's heads."""
     q = torch.randn(1, 8, 2, 16, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="backward"):
-        tfa.flash_attention_causal(q, q.detach(), q.detach())
-    with torch.no_grad():
-        tfa.flash_attention_causal(q, q, q)
+    k = torch.randn(1, 8, 1, 16, requires_grad=True)
+    v = torch.randn(1, 8, 1, 16, requires_grad=True)
+    out = tfa.flash_attention_causal(q, k, v)
+    grads = torch.autograd.grad(out.sum(), (q, k, v))
+    for t, g in zip((q, k, v), grads):
+        assert g.shape == t.shape and g.dtype == t.dtype
+        assert torch.isfinite(g).all() and g.abs().sum() > 0
+    qt = q.detach().transpose(1, 2)
+    o, lse = tfa._fwd(qt, k.detach().transpose(1, 2),
+                      v.detach().transpose(1, 2), True)
+    with pytest.raises(ValueError, match="q's heads"):
+        tfa._bwd_impl(qt, k.detach().transpose(1, 2),
+                      v.detach().transpose(1, 2), o, lse, o, True)
 
 
 def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
@@ -105,36 +120,56 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
     assert tfa.launch_counts["flash_fwd"] == 0
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("layout", ["bhsd", "bshd"])
-@pytest.mark.parametrize("shape,causal", [
-    ((2, 8, 2, 256, 256, 128), True),
-    ((1, 4, 4, 100, 190, 64), False),
-    ((1, 2, 1, 77, 77, 16), True),
-])
-def test_kernel_matches_plain_version_on_card(shape, causal, layout):
-    """The sm_90a kernel against its plain version on the same bf16
-    inputs (o within a few bf16 ulps, lse to f32 summation order), on
-    contiguous (B, H, S, D) tensors and on (B, H, S, D) views of the
-    model's (B, S, H, D) tensors, which it reads through their strides."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU (sm_90a) and nvcc")
-    B, Hq, Hkv, Sq, Sk, D = shape
-    g = torch.Generator(device="cuda").manual_seed(0)
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("heads", [(4, 4), (4, 2), (4, 1)],
+                         ids=["mha", "gqa", "mqa"])
+def test_bwd_reference_matches_jax_bwd_impl(heads, causal, dtype):
+    """dq, dk, dv of the plain backward equal the Pallas dq and dk/dv
+    kernels' (interpret mode, two 64-wide tiles per axis), with k/v
+    expanded to q's heads as the custom VJP does, from the same q, k, v,
+    do and the same forward o and lse."""
+    Hq, Hkv = heads
+    Sq, Sk = (128, 128) if causal else (64, 128)
+    q, k, v = _inputs(2, 2, Hq, Hkv, Sq, Sk, 32)
+    k, v = (np.repeat(a, Hq // Hkv, axis=1) for a in (k, v))
+    do = np.random.default_rng(3).standard_normal(q.shape).astype(
+        np.float32)
+    jq, jk, jv, jdo = (jnp.asarray(a).astype(_JDT[dtype])
+                       for a in (q, k, v, do))
+    o, lse = jfa._fwd(jq, jk, jv, causal=causal, block_q=64, block_k=64,
+                      interpret=True)
+    want = jfa._bwd_impl(jq, jk, jv, o, lse, jdo, causal=causal,
+                         block_q=64, block_k=64, interpret=True)
+    tq, tk, tv, tdo, to = (
+        torch.from_numpy(np.array(a.astype(jnp.float32))).to(_TDT[dtype])
+        for a in (jq, jk, jv, jdo, o))
+    got = tfa._bwd_impl(tq, tk, tv, to, torch.from_numpy(np.array(lse)),
+                        tdo, causal)
+    for name, t, j in zip(("dq", "dk", "dv"), got, want):
+        assert t.dtype == torch.float32, name
+        np.testing.assert_allclose(t.numpy(), np.asarray(j),
+                                   atol=_ATOL[dtype], err_msg=name)
 
-    def randn(b, h, s, d):
-        if layout == "bhsd":
-            return torch.randn(b, h, s, d, generator=g, device="cuda"
-                               ).to(torch.bfloat16)
-        return torch.randn(b, s, h, d, generator=g, device="cuda"
-                           ).to(torch.bfloat16).transpose(1, 2)
 
-    q = randn(B, Hq, Sq, D) * D ** -0.5
-    k, v = randn(B, Hkv, Sk, D), randn(B, Hkv, Sk, D)
-    before = tfa.launch_counts["flash_fwd"]
-    o, lse = tfa._fwd(q, k, v, causal)
-    ro, rl = tfa._fwd_reference(q, k, v, causal)
-    assert tfa.launch_counts["flash_fwd"] == before + 1
-    assert o.stride() == q.stride()
-    assert (o.float() - ro.float()).abs().max().item() <= 1e-2
-    assert (lse - rl).abs().max().item() <= 1e-3
+def test_flash_attention_causal_grads_match_jax():
+    """torch.autograd.grad through the port's flash_attention_causal
+    against jax.vjp of the JAX one, f32, GQA (4 q heads on 2 kv heads)
+    at S=100: the pad path, the scale chain (dq through q * D**-0.5) and
+    the group-sum of dk/dv.  f32 both sides: the same math summed in
+    another order."""
+    rng = np.random.default_rng(4)
+    q = rng.standard_normal((2, 100, 4, 16)).astype(np.float32)
+    k = rng.standard_normal((2, 100, 2, 16)).astype(np.float32)
+    v = rng.standard_normal((2, 100, 2, 16)).astype(np.float32)
+    do = rng.standard_normal((2, 100, 4, 16)).astype(np.float32)
+    _, vjp = jax.vjp(jfa.flash_attention_causal, jnp.asarray(q),
+                     jnp.asarray(k), jnp.asarray(v))
+    want = vjp(jnp.asarray(do))
+    ins = [torch.from_numpy(a).requires_grad_() for a in (q, k, v)]
+    out = tfa.flash_attention_causal(*ins)
+    got = torch.autograd.grad(out, ins, torch.from_numpy(do))
+    for name, t, i, j in zip(("dq", "dk", "dv"), got, ins, want):
+        assert t.shape == i.shape, name
+        np.testing.assert_allclose(t.numpy(), np.asarray(j), atol=1e-5,
+                                   err_msg=name)
