@@ -11,10 +11,12 @@ through the entry points a user would call, and checks the results:
 
 1. card name and power limit (nvidia-smi);
 2. kernel build (one nvcc per source, all started together), with its
-   time and ptxas register report;
+   time and ptxas register report; it fails if ptxas ignored the
+   warp-specialised kernels' setmaxnreg;
 3. flash forward kernel vs its plain version, bf16, at four shapes;
 4. kernel time vs its bound, the plain version and PyTorch's SDPA
-   (timed as a yardstick only; the port never calls it);
+   (timed as a yardstick only; the port never calls it), at the
+   forward's shape (B=4) and at the train step's (B=8);
 5. llama_440m forward, attention_impl="flash", bf16, B=4 x S=2048, random
    weights from a seed: finite logits, 24 kernel launches, agreement
    with the same forward under attention_impl="dot";
@@ -48,6 +50,7 @@ import asyncio
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -95,6 +98,10 @@ TOL_GRAD_REL = 1e-3
 TOL_CHAIN_LOSS_REL = 1e-3
 # Train phase shape (the repo's llama_440m bench shape) and step counts.
 TRAIN_B, TRAIN_S, TRAIN_WARM, TRAIN_TIMED, CHAIN_STEPS = 8, 2048, 3, 10, 2
+# What each kernel is built from, for the kernels line.
+DESIGN = {"flash_fwd": "wgmma+tma, warp-specialised",
+          "flash_bwd_dq": "mma.sync",
+          "flash_bwd_dkdv": "wgmma+tma, warp-specialised"}
 
 
 def fail(msg: str) -> None:
@@ -394,13 +401,18 @@ def main() -> None:
               f"{n} {sec:.1f}s" for n, sec in _build.build_seconds.items())
           + ")")
     for lib in ("flash_fwd", "flash_bwd"):
-        # One line per kernel instance: its name and D (from the mangled
-        # name), registers, spills, static shared memory.
+        # One line per kernel instance: its name and template argument (D,
+        # or the head dimension it pads to), registers, spills, static
+        # shared memory.  ptxas names a function whose setmaxnreg it
+        # ignored (warning C7508).
         entry, spill = None, ""
         for line in _build.build_logs.get(lib, "").splitlines():
-            if "Compiling entry" in line:
-                entry = line.split("_cu_")[-1].split("EEEv")[0]
-                entry = entry[entry.find("flash"):].replace("ILi", " D=")
+            if "setmaxnreg" in line and "ignored" in line:
+                fail(f"ptxas ignored setmaxnreg: {line.strip()}")
+            m = re.search(r"\d(flash_[a-z_]+?)(?:ILi(\d+)E|E)", line)
+            if "Compiling entry" in line and m:
+                entry = m.group(1) + (f"<{m.group(2)}>" if m.group(2)
+                                      else "")
             elif "spill" in line:
                 spill = line.split(",", 1)[-1].strip()
             elif "registers" in line and entry:
@@ -429,21 +441,27 @@ def main() -> None:
             fail(f"flash_fwd disagrees with its plain version at {name}")
         worst = max(worst, do)
 
-    # 4. Time at the main path's shape and layout.
-    B, H, S, D = 4, 8, 2048, 128
-    q, k, v = attention_inputs(torch, (B, H, H, S, S, D), 7, "bshd")
-    ms = time_ms(lambda: fa._fwd(q, k, v, True))
-    plain_ms = time_ms(lambda: fa._fwd_reference(q, k, v, True), reps=3,
-                       rounds=3)
+    # 4. Time at the forward's shape and layout (B=4), then at the train
+    # step's (B=8, where its 24 launches a step run).
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    library_ms = time_ms(lambda: sdpa(q, k, v, is_causal=True, scale=1.0))
-    flops, nbytes, bound_ms, bound_by = attention_cost(B, H, S, S, D, True)
-    phase("time", f"flash_fwd (4,8,2048,128) causal bf16 (B,S,H,D) "
-          f"views: {ms:.4f} ms "
-          f"({flops / ms / 1e9:.1f} TFLOP/s), bound {bound_ms:.4f} ms "
-          f"({bound_by}; {flops:.3e} FLOP, {nbytes:.3e} B), plain "
-          f"{plain_ms:.4f} ms, sdpa {library_ms:.4f} ms")
-    del q, k, v
+    for B in (TRAIN_B, 4):
+        H, S, D = 8, 2048, 128
+        q, k, v = attention_inputs(torch, (B, H, H, S, S, D), 7, "bshd")
+        ms = time_ms(lambda: fa._fwd(q, k, v, True))
+        plain_ms = time_ms(lambda: fa._fwd_reference(q, k, v, True),
+                           reps=3, rounds=3)
+        library_ms = time_ms(lambda: sdpa(q, k, v, is_causal=True,
+                                          scale=1.0))
+        flops, nbytes, bound_ms, bound_by = attention_cost(B, H, S, S, D,
+                                                           True)
+        phase("time", f"flash_fwd ({B},{H},{S},{D}) causal bf16 (B,S,H,D) "
+              f"views: {ms:.4f} ms "
+              f"({flops / ms / 1e9:.1f} TFLOP/s), bound {bound_ms:.4f} ms "
+              f"({bound_by}; {flops:.3e} FLOP, {nbytes:.3e} B; "
+              f"{100 * bound_ms / ms:.1f}% of it), plain {plain_ms:.4f} ms, "
+              f"sdpa {library_ms:.4f} ms")
+        del q, k, v
+    # The kernels line keeps the forward's shape (B=4), the last timed.
 
     # 5. llama_440m forward through the kernel.
     cfg = llama.LlamaConfig.llama_440m(dtype=torch.bfloat16)
@@ -602,7 +620,7 @@ def main() -> None:
         phase("time", f"{name} ({B},{H},{S},{D}) causal bf16 (B,S,H,D) "
               f"views: {k_ms:.4f} ms ({flops / k_ms / 1e9:.1f} TFLOP/s), "
               f"bound {b_ms:.4f} ms ({b_by}; {flops:.3e} FLOP, "
-              f"{nbytes:.3e} B)")
+              f"{nbytes:.3e} B; {100 * b_ms / k_ms:.1f}% of it)")
     phase("time", f"flash backward (both kernels, _bwd_impl) "
           f"{impl_ms:.4f} ms; plain backward {bwd_plain_ms:.4f} ms; sdpa "
           f"backward {bwd_library_ms:.4f} ms (dq, dk, dv of one call)")
@@ -721,7 +739,7 @@ def main() -> None:
 
     # 11. Kernels, then the result.
     kernels = [{
-        "name": "flash_fwd", "route": "cuda",
+        "name": "flash_fwd", "route": "cuda", "design": DESIGN["flash_fwd"],
         "source": "ray_tpu_torch/ops/csrc/flash_fwd.cu",
         "replaces": "ray_tpu/ops/flash_attention.py:96",
         "launches": train_launches["flash_fwd"],
@@ -731,7 +749,7 @@ def main() -> None:
     for name, line, err in (("flash_bwd_dq", 216, worst_bwd["dq"]),
                             ("flash_bwd_dkdv", 264, worst_bwd["dkdv"])):
         kernels.append({
-            "name": name, "route": "cuda",
+            "name": name, "route": "cuda", "design": DESIGN[name],
             "source": "ray_tpu_torch/ops/csrc/flash_bwd.cu",
             "replaces": f"ray_tpu/ops/flash_attention.py:{line}",
             "launches": train_launches[name], "max_abs_err": err,

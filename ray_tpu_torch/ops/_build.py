@@ -2,10 +2,12 @@
 
 Each kernel source under ``ops/csrc/`` has a plain C interface and is
 compiled by ``nvcc`` for ``sm_90a`` into its own shared library under
-``ops/_build/`` (listed in ``.gitignore``).  The library's file name
-carries a hash of the source and flags, so an edited source rebuilds
-and an unchanged one is reused.  Nothing here runs at import: the CPU
-tests import every module and have no ``nvcc``.
+``ops/_build/`` (listed in ``.gitignore``).  A library's sources are its
+``.cu`` file and the headers it includes (``hopper.cuh``): nvcc compiles
+the ``.cu`` files, with ``-I`` for ``csrc/``, and the library's file name
+carries a hash of every listed source and the flags, so an edited source
+or header rebuilds and an unchanged one is reused.  Nothing here runs at
+import: the CPU tests import every module and have no ``nvcc``.
 """
 
 from __future__ import annotations
@@ -24,7 +26,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo",
-              "-Xptxas", "-v"]
+              "-Xptxas", "-v", f"-I{CSRC}"]
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -53,7 +55,8 @@ def library_path(name: str, sources: List[str]) -> Path:
 
 
 def build(name: str, sources: List[str]) -> Path:
-    """Compile ``sources`` (names under ``csrc/``) into
+    """Compile the ``.cu`` files of ``sources`` (names under ``csrc/``;
+    the headers among them only enter the hash) into
     ``_build/lib<name>_<hash>.so`` unless it exists.  Raises with the
     compiler's output on failure.  Safe to call from several threads or
     processes at once: each nvcc writes its own temporary file."""
@@ -63,7 +66,7 @@ def build(name: str, sources: List[str]) -> Path:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
     cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(CSRC / s) for s in sources]]
+           *[str(CSRC / s) for s in sources if s.endswith(".cu")]]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:

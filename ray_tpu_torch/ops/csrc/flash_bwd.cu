@@ -24,53 +24,62 @@
 //   tensors are read in place.  Any Sq and Sk: the ragged edge is
 //   zero-filled on load and masked.
 //
-// Design.  Both kernels use one thread block of 4 warps and 64-row
-// tiles; every product runs on the tensor cores as mma.sync m16n8k16
-// bf16 -> f32, and s, p and ds never leave registers.  Tiles are
-// staged in shared memory with cp.async, double-buffered so the next
-// tile's load overlaps this tile's products; only the tile the causal
-// diagonal crosses and the ragged last tile are masked.  Each tile is
-// worked in two 32-wide halves to keep the score fragments small next
-// to the f32 accumulators (at D = 128 B3 still holds 2 x 64 f32
-// accumulators a thread and spills a few bytes).
-//   B2: one block per (b, h, q tile of 64 rows); each warp owns 16 rows.
-//     delta comes from the O and dO tiles (two threads per row) before
-//     the loop.  Q and dO fragments stay in registers; the block walks
-//     the K/V tiles up to the diagonal (all of them when non-causal),
-//     recomputes s and dp, and keeps dq in f32 registers.
-//   B3: one block per (b, h, k tile of 64 keys); each warp owns 16 keys.
-//     K and V stay in shared memory; the block walks the q tiles from
-//     the diagonal to the end, recomputes s^T and dp^T with the tile's
-//     lse and delta, and keeps dk and dv in f32 registers.  Every block
-//     owns its rows of dk and dv, so no atomics are needed.
+// Design of B2 (mma.sync).  One thread block of 4 warps per (b, h, q
+// tile of 64 rows); each warp owns 16 rows.  delta comes from the O and
+// dO tiles (two threads per row) before the loop.  Q and dO fragments
+// stay in registers; the block walks the K/V tiles up to the diagonal
+// (all of them when non-causal), double-buffered in shared memory with
+// cp.async, recomputes s and dp in two 32-wide halves, and keeps dq in
+// f32 registers; every product is mma.sync m16n8k16 bf16 -> f32.
+//
+// Design of B3 (wgmma + TMA, warp-specialised).  One block of three
+// warpgroups per (b, h, k tile of 128 keys), the k tiles with the most
+// q tiles launched first.  Warpgroup 0 is the producer: it gives up
+// registers (setmaxnreg) and one of its threads issues every load with
+// TMA: K and V once, then 64-row tiles of Q and dO through a three-stage
+// ring, each stage with a "full" and an "empty" mbarrier; its warp copies
+// each tile's lse and delta rows beside them.  Warpgroups 1 and 2 are consumers that own 64
+// keys each and keep their dk and dv in f32 registers.  Per q tile a
+// consumer computes S^T = K Q^T and dP^T = V dO^T with wgmma m64n64k16
+// reading all four tiles from shared memory, p^T = exp(s^T - lse) and
+// ds^T = p^T (dp^T - delta) in registers, rounds both to bf16 in place
+// (the accumulator layout of S^T is already the A-fragment layout of the
+// next product), and computes dV += P^T dO and dK += dS^T Q with the
+// register A operand and dO, Q read MN-major (D contiguous) from shared
+// memory.  s, p and ds never leave registers.  It walks the q tiles from
+// the diagonal to the end (all of them when non-causal); only the tiles
+// the diagonal or the ragged edge crosses are masked.  Every block owns
+// its rows of dk and dv, so no atomics are needed.  Head dimensions up
+// to 64 use one 64-column box per tile, 80 to 128 two; TMA zero-fills
+// the columns past D and the rows past Sq or Sk, and neither is stored.
 //
 // Bound.  At the main path's shape (B=8, H=8, S=2048, D=128, causal;
 // 2,098,176 visible (row, key) pairs per (b, h)) B2 does 6*B*H*D*pairs
 // = 1.03e11 FLOP and moves ~0.3 GB with the delta pre-pass (0.104 ms at
 // 989 TFLOP/s against 0.090 ms at 3.35 TB/s), B3 8*B*H*D*pairs =
 // 1.37e11 FLOP and ~0.27 GB (0.139 ms against 0.080 ms): both are bound
-// by operations.  This
-// first design leaves for later what reaches that bound: wgmma
-// (warpgroup MMA reading tiles straight from shared memory), TMA loads
-// with mbarriers, a deeper multi-stage ring, warp specialisation, and
-// reducing GQA inside B3 instead of expanding K/V to q's heads.
-//
-// What bounds this design in practice is shared memory, not the tensor
-// cores: every B operand of mma.sync is read from shared memory with
-// ldmatrix by each warp, and per m16n8k16 product B3 reads 320 bytes
-// and B2 256 (counted from the loops below), against the SM's 128
-// bytes a clock and about one such product a clock at the bf16 peak.
-// wgmma, which reads its B operand from shared memory without staging
-// it in registers, is the way past that.
+// by operations.  What holds B2 back is shared memory: every B operand
+// of mma.sync is read from shared memory with ldmatrix by each warp, 256
+// bytes per m16n8k16 product (counted from its loop) against the SM's
+// 128 bytes a clock and about one such product a clock at the bf16 peak.
+// B3's wgmma reads its shared-memory operands without staging them
+// through registers; what is left there is the tensor cores, the
+// exponentials and one block per SM, with a q tile's elementwise work not
+// yet overlapped with the next tile's products inside a warpgroup.  Still
+// open: wgmma for B2, and reducing GQA inside B3 instead of expanding K/V
+// to q's heads.
 //
 // Interface: plain C, loaded with ctypes.  Kernels launch on the
 // caller's stream and allocate nothing; each launcher returns
 // cudaGetLastError() (0 on success).
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -97,14 +106,6 @@ __device__ __forceinline__ void cp_async_16(void* dst, const void* src,
                                             bool valid) {
   const int src_bytes = valid ? 16 : 0;
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(smem_addr(dst)), "l"(src), "r"(src_bytes));
-}
-
-// 4-byte async copy (lse/delta rows need not be 16-byte aligned).
-__device__ __forceinline__ void cp_async_4(void* dst, const void* src,
-                                           bool valid) {
-  const int src_bytes = valid ? 4 : 0;
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
                :: "r"(smem_addr(dst)), "l"(src), "r"(src_bytes));
 }
 
@@ -407,177 +408,239 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// B3: dk, dv
+// B3: dk, dv (wgmma + TMA, warp-specialised)
 // ---------------------------------------------------------------------------
 
-template <int D>
-__device__ __forceinline__ void load_q_side(bf16* sQ, bf16* sdO, float* sL,
-                                            float* sD, const bf16* qb,
-                                            const bf16* dob,
-                                            const float* lse,
-                                            const float* delta,
-                                            int64_t row_off, Strides qs,
-                                            Strides dos, int q0, int Sq) {
-  load_tile<D>(sQ, qb, qs.s, q0, Sq);
-  load_tile<D>(sdO, dob, dos.s, q0, Sq);
-  for (int r = threadIdx.x; r < kTileRows; r += kThreads) {
-    const bool valid = q0 + r < Sq;
-    const int64_t i = row_off + (valid ? q0 + r : 0);
-    cp_async_4(sL + r, lse + i, valid);
-    cp_async_4(sD + r, delta + i, valid);
-  }
-}
+constexpr int kDkdvKeys = 128;    // keys per block, 64 per consumer warpgroup
+constexpr int kDkdvRows = 64;     // q rows per tile of the ring
+constexpr int kDkdvStages = 3;    // depth of the Q/dO ring
+constexpr int kDkdvThreads = 384;  // producer + 2 consumer warpgroups
+constexpr int kKeyBox = kDkdvKeys * 128;  // one (128 keys, 64 columns) box
+constexpr int kRowBox = kDkdvRows * 128;  // one (64 rows, 64 columns) box
 
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dkdv_kernel(const bf16* __restrict__ q,
-                      const bf16* __restrict__ k,
-                      const bf16* __restrict__ v,
-                      const bf16* __restrict__ dout,
+// Shared memory of one B3 block, head dimension padded to DP (64 or 128).
+template <int DP>
+struct DkdvSmem {
+  static constexpr int kKV = DP / 64 * kKeyBox;      // a K or V tile
+  static constexpr int kRows = DP / 64 * kRowBox;    // a Q or dO tile
+  static constexpr int kK = 0;
+  static constexpr int kV = kKV;
+  static constexpr int kQ = 2 * kKV;                           // [stages]
+  static constexpr int kDo = kQ + kDkdvStages * kRows;         // [stages]
+  static constexpr int kLse = kDo + kDkdvStages * kRows;       // [stages][64]
+  static constexpr int kDelta = kLse + kDkdvStages * kDkdvRows * 4;
+  static constexpr int kBars = kDelta + kDkdvStages * kDkdvRows * 4;
+  // full_kv, full[stages], empty[stages]; then the alignment slack.
+  static constexpr int kBytes = kBars + 8 * (1 + 2 * kDkdvStages) + 1024;
+};
+
+template <int DP>
+__global__ void __launch_bounds__(kDkdvThreads, 1)
+flash_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tq,
+                      const __grid_constant__ CUtensorMap tk,
+                      const __grid_constant__ CUtensorMap tv,
+                      const __grid_constant__ CUtensorMap tdo,
                       const float* __restrict__ lse,
                       const float* __restrict__ delta,
-                      float* __restrict__ dk, float* __restrict__ dv,
-                      int H, int Sq, int Sk, int causal, Strides qs,
-                      Strides ks, Strides vs, Strides dos) {
-  static_assert(D % 16 == 0 && D <= 128, "D must be a multiple of 16");
-  constexpr int kSteps = D / 16;
-  constexpr int kTilesO = D / 8;
-  constexpr int kTile = kTileRows * (D + 8);
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sK = reinterpret_cast<bf16*>(smem);   // [kTile]
-  bf16* sV = sK + kTile;                      // [kTile]
-  bf16* sQ = sV + kTile;                      // [2][kTile]
-  bf16* sdO = sQ + 2 * kTile;                 // [2][kTile]
-  float* sL = reinterpret_cast<float*>(sdO + 2 * kTile);  // [2][64]
-  float* sD = sL + 2 * kTileRows;                          // [2][64]
+                      float* __restrict__ dk, float* __restrict__ dv, int H,
+                      int Sq, int Sk, int D, int causal) {
+  using L = DkdvSmem<DP>;
+  using namespace hopper;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  uint64_t* full_kv = reinterpret_cast<uint64_t*>(smem + L::kBars);
+  uint64_t* full = full_kv + 1;
+  uint64_t* empty = full + kDkdvStages;
 
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
   // Causal: the first k tile has the most q tiles, and runs first.
-  const int k0 = blockIdx.x * kTileRows;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const int64_t row_off = (int64_t)(b * H + h) * Sq;
-  const int64_t key_off = (int64_t)(b * H + h) * Sk;
+  const int k0 = blockIdx.z * kDkdvKeys;
+  // Rows at or below this k tile's diagonal.
+  const int first = causal ? k0 / kDkdvRows : 0;
+  const int n_qt = (Sq + kDkdvRows - 1) / kDkdvRows;
+  const int64_t row_off = static_cast<int64_t>(b * H + h) * Sq;
 
-  const bf16* qb = q + b * qs.b + h * qs.h;
-  const bf16* kb = k + b * ks.b + h * ks.h;
-  const bf16* vb = v + b * vs.b + h * vs.h;
-  const bf16* dob = dout + b * dos.b + h * dos.h;
-
-  // Rows at or below this k tile's diagonal (tiles are 64 both ways).
-  const int first = causal ? k0 / kTileRows : 0;
-  const int n_qt = (Sq + kTileRows - 1) / kTileRows;
-
-  // K and V stay in shared memory for the whole loop.
-  load_tile<D>(sK, kb, ks.s, k0, Sk);
-  load_tile<D>(sV, vb, vs.s, k0, Sk);
-  if (first < n_qt) {
-    load_q_side<D>(sQ, sdO, sL, sD, qb, dob, lse, delta, row_off, qs, dos,
-                   first * kTileRows, Sq);
-  }
-  cp_async_commit();
-
-  float dk_acc[kTilesO][4], dv_acc[kTilesO][4];
-#pragma unroll
-  for (int n = 0; n < kTilesO; ++n) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk_acc[n][e] = dv_acc[n][e] = 0.f;
-  }
-  const int key_a = k0 + warp * 16 + g;
-  const int key_b = key_a + 8;
-
-  for (int i = first; i < n_qt; ++i) {
-    const int buf = (i - first) & 1;
-    const int q0 = i * kTileRows;
-    if (i + 1 < n_qt) {
-      const int nb = buf ^ 1;
-      load_q_side<D>(sQ + nb * kTile, sdO + nb * kTile, sL + nb * kTileRows,
-                     sD + nb * kTileRows, qb, dob, lse, delta, row_off, qs,
-                     dos, q0 + kTileRows, Sq);
+  if (threadIdx.x == 0) {
+    mbar_init(full_kv, 1);
+    for (int s = 0; s < kDkdvStages; ++s) {
+      // The TMA thread's expect_tx and the 32 lanes that copy lse/delta.
+      mbar_init(full + s, 33);
+      mbar_init(empty + s, 2);  // one arrival per consumer warpgroup
     }
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    const bf16* tQ = sQ + buf * kTile;
-    const bf16* tdO = sdO + buf * kTile;
-    const float* tL = sL + buf * kTileRows;
-    const float* tD = sD + buf * kTileRows;
-    const bool masked = q0 + kTileRows > Sq ||
-                        (causal && k0 + kTileRows - 1 > q0);
+    mbar_fence_init();
+  }
+  __syncthreads();
 
-#pragma unroll
-    for (int hf = 0; hf < kTileRows / kHalf; ++hf) {
-      // S^T = K Q^T and dP^T = V dO^T for 16 keys x 32 q rows.
-      float s[4][4], dp[4][4];
-#pragma unroll
-      for (int n = 0; n < 4; ++n) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
-      }
-#pragma unroll
-      for (int kk = 0; kk < kSteps; ++kk) {
-        uint32_t kf[4], vf[4];
-        load_a<D>(kf, sK, warp, lane, kk);
-        load_a<D>(vf, sV, warp, lane, kk);
-#pragma unroll
-        for (int np = 0; np < 2; ++np) {
-          const int n0 = hf * kHalf + np * 16;
-          uint32_t bf[4];
-          load_b_rows<D>(bf, tQ, lane, n0, kk);
-          mma_bf16(s[2 * np], kf, bf[0], bf[1]);
-          mma_bf16(s[2 * np + 1], kf, bf[2], bf[3]);
-          load_b_rows<D>(bf, tdO, lane, n0, kk);
-          mma_bf16(dp[2 * np], vf, bf[0], bf[1]);
-          mma_bf16(dp[2 * np + 1], vf, bf[2], bf[3]);
+  if (threadIdx.x < 128) {
+    // Producer warpgroup: one thread issues every TMA load; its warp
+    // copies each tile's lse and delta rows (64 f32 each, at any
+    // alignment) and arrives on the same "full" barrier.
+    setmaxnreg_dec<24>();
+    if (threadIdx.x < 32 && first < n_qt) {
+      const int lane = threadIdx.x;
+      if (lane == 0) {
+        mbar_expect_tx(full_kv, 2 * L::kKV);
+        for (int x = 0; x < DP / 64; ++x) {
+          tma_load_4d(smem + L::kK + x * kKeyBox, &tk, full_kv, 64 * x, k0,
+                      h, b);
+          tma_load_4d(smem + L::kV + x * kKeyBox, &tv, full_kv, 64 * x, k0,
+                      h, b);
         }
       }
-      // p^T = exp(s^T - lse), ds^T = p^T (dp^T - delta); columns are q
-      // rows, so lse and delta come from the tile's shared copy.
-#pragma unroll
-      for (int n = 0; n < 4; ++n) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int c = hf * kHalf + n * 8 + 2 * t + (e & 1);
-          float sv = s[n][e];
-          if (masked) {
-            const int row = q0 + c;
-            const int key = e < 2 ? key_a : key_b;
-            if (row >= Sq || (causal && key > row)) sv = kMasked;
+      for (int i = first, it = 0; i < n_qt; ++i, ++it) {
+        const int st = it % kDkdvStages;
+        mbar_wait(empty + st, ((it / kDkdvStages) & 1) ^ 1);
+        if (lane == 0) {
+          mbar_expect_tx(full + st, 2 * L::kRows);
+          for (int x = 0; x < DP / 64; ++x) {
+            tma_load_4d(smem + L::kQ + st * L::kRows + x * kRowBox, &tq,
+                        full + st, 64 * x, i * kDkdvRows, h, b);
+            tma_load_4d(smem + L::kDo + st * L::kRows + x * kRowBox, &tdo,
+                        full + st, 64 * x, i * kDkdvRows, h, b);
           }
-          const float p = exp2f(fmaf(sv, kLog2e, -tL[c] * kLog2e));
-          s[n][e] = p;
-          dp[n][e] = p * (dp[n][e] - tD[c]);
         }
+        float* tl = reinterpret_cast<float*>(smem + L::kLse) + st * kDkdvRows;
+        float* td =
+            reinterpret_cast<float*>(smem + L::kDelta) + st * kDkdvRows;
+        for (int r = lane; r < kDkdvRows; r += 32) {
+          const int row = i * kDkdvRows + r;  // rows past Sq are masked
+          tl[r] = row < Sq ? lse[row_off + row] : 0.f;
+          td[r] = row < Sq ? delta[row_off + row] : 0.f;
+        }
+        mbar_arrive(full + st);  // release: the consumers see tl, td
       }
-      uint32_t pf[2][4], dsf[2][4];
-      pack_a(pf, s);
-      pack_a(dsf, dp);
-      // dV += P^T dO and dK += dS^T Q over this half's 32 q rows.
+    }
+  } else {
+    // Consumer warpgroups: 64 keys each.
+    setmaxnreg_inc<240>();
+    const int tid = threadIdx.x % 128;
+    const int wk0 = k0 + (threadIdx.x / 128 - 1) * 64;
+    const int key_a = wk0 + (tid / 32) * 16 + (tid % 32) / 4;
+    const int key_b = key_a + 8;
+    const int t = tid % 4;  // column pair within each 8-column group
+
+    float dk_acc[DP / 2], dv_acc[DP / 2];  // 64 keys x DP each
 #pragma unroll
-      for (int kk = 0; kk < 2; ++kk) {
+    for (int r = 0; r < DP / 2; ++r) dk_acc[r] = dv_acc[r] = 0.f;
+
+    if (first < n_qt) {
+      const uint32_t sk = smem_u32(smem + L::kK) + (wk0 - k0) * 128;
+      const uint32_t sv = smem_u32(smem + L::kV) + (wk0 - k0) * 128;
+      float s[kDkdvRows / 2], dp[kDkdvRows / 2];  // 64 keys x 64 q rows
+      uint32_t pf[kDkdvRows / 16][4], dsf[kDkdvRows / 16][4];
+      mbar_wait(full_kv, 0);
+      for (int i = first, it = 0; i < n_qt; ++i, ++it) {
+        const int st = it % kDkdvStages;
+        mbar_wait(full + st, (it / kDkdvStages) & 1);
+        const int q0 = i * kDkdvRows;
+        const uint32_t sq = smem_u32(smem + L::kQ + st * L::kRows);
+        const uint32_t sdo = smem_u32(smem + L::kDo + st * L::kRows);
+
+        // S^T = K Q^T and dP^T = V dO^T: all four tiles K-major; a
+        // 16-wide step over D moves 32 bytes inside a 64-column box.  The
+        // steps past D add TMA's zero columns.
+        wgmma_fence();
 #pragma unroll
-        for (int np = 0; np < kTilesO / 2; ++np) {
-          uint32_t bf[4];
-          load_b_cols<D>(bf, tdO, lane, hf * kHalf + kk * 16, np);
-          mma_bf16(dv_acc[2 * np], pf[kk], bf[0], bf[1]);
-          mma_bf16(dv_acc[2 * np + 1], pf[kk], bf[2], bf[3]);
-          load_b_cols<D>(bf, tQ, lane, hf * kHalf + kk * 16, np);
-          mma_bf16(dk_acc[2 * np], dsf[kk], bf[0], bf[1]);
-          mma_bf16(dk_acc[2 * np + 1], dsf[kk], bf[2], bf[3]);
+        for (int kk = 0; kk < DP / 16; ++kk) {
+          const uint32_t a = (kk / 4) * kKeyBox + (kk % 4) * 32;
+          const uint32_t c = (kk / 4) * kRowBox + (kk % 4) * 32;
+          wgmma_ss<0>(s, desc_sw128(sk + a, 16, 1024),
+                      desc_sw128(sq + c, 16, 1024), kk > 0);
+        }
+#pragma unroll
+        for (int kk = 0; kk < DP / 16; ++kk) {
+          const uint32_t a = (kk / 4) * kKeyBox + (kk % 4) * 32;
+          const uint32_t c = (kk / 4) * kRowBox + (kk % 4) * 32;
+          wgmma_ss<0>(dp, desc_sw128(sv + a, 16, 1024),
+                      desc_sw128(sdo + c, 16, 1024), kk > 0);
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(s);
+        fence_regs(dp);
+
+        // p^T = exp(s^T - lse), ds^T = p^T (dp^T - delta); columns are q
+        // rows, so lse and delta come from the tile's shared copy.  Only
+        // tiles the diagonal or the ragged edge crosses are masked.
+        const bool masked = q0 + kDkdvRows > Sq ||
+                            (causal && wk0 + 63 > q0);
+        const float* tl =
+            reinterpret_cast<const float*>(smem + L::kLse) + st * kDkdvRows;
+        const float* td = reinterpret_cast<const float*>(smem + L::kDelta) +
+                          st * kDkdvRows;
+#pragma unroll
+        for (int n = 0; n < kDkdvRows / 8; ++n) {
+          const float2 l2 = *reinterpret_cast<const float2*>(tl + 8 * n + 2 * t);
+          const float2 d2 = *reinterpret_cast<const float2*>(td + 8 * n + 2 * t);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int r = 4 * n + e;
+            float sv = s[r];
+            if (masked) {
+              const int row = q0 + 8 * n + 2 * t + (e & 1);
+              const int key = (e & 2) ? key_b : key_a;
+              if (row >= Sq || (causal && key > row)) sv = kMasked;
+            }
+            const float lr = (e & 1) ? l2.y : l2.x;
+            const float p = exp2f(fmaf(sv, kLog2e, -lr * kLog2e));
+            s[r] = p;
+            dp[r] = p * (dp[r] - ((e & 1) ? d2.y : d2.x));
+          }
+          // Accumulator registers 8k..8k+7, in pairs, are the A fragment
+          // of q rows 16k..16k+15.
+          pf[n / 2][(n % 2) * 2] = hopper::pack_bf16(s[4 * n], s[4 * n + 1]);
+          pf[n / 2][(n % 2) * 2 + 1] =
+              hopper::pack_bf16(s[4 * n + 2], s[4 * n + 3]);
+          dsf[n / 2][(n % 2) * 2] =
+              hopper::pack_bf16(dp[4 * n], dp[4 * n + 1]);
+          dsf[n / 2][(n % 2) * 2 + 1] =
+              hopper::pack_bf16(dp[4 * n + 2], dp[4 * n + 3]);
+        }
+
+        // dV += P^T dO and dK += dS^T Q: the A operands from registers,
+        // dO and Q MN-major (their rows are the reduction index); a
+        // 16-row step moves 2048 bytes.
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kDkdvRows / 16; ++kk) {
+          wgmma_rs<1>(dv_acc, pf[kk],
+                      desc_sw128(sdo + kk * 2048, kRowBox, 1024), 1);
+        }
+#pragma unroll
+        for (int kk = 0; kk < kDkdvRows / 16; ++kk) {
+          wgmma_rs<1>(dk_acc, dsf[kk],
+                      desc_sw128(sq + kk * 2048, kRowBox, 1024), 1);
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(dv_acc);
+        fence_regs(dk_acc);
+        fence_regs(pf);
+        fence_regs(dsf);
+        if (tid == 0) mbar_arrive(empty + st);
+      }
+    }
+
+    // Each block owns its keys' rows of dk and dv: plain stores.
+    const int64_t key_off = static_cast<int64_t>(b * H + h) * Sk;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int key = i ? key_b : key_a;
+      if (key >= Sk) continue;
+      float* dkrow = dk + (key_off + key) * D;
+      float* dvrow = dv + (key_off + key) * D;
+#pragma unroll
+      for (int j = 0; j < DP / 8; ++j) {
+        if (8 * j < D) {
+          *reinterpret_cast<float2*>(dkrow + 8 * j + 2 * t) =
+              make_float2(dk_acc[4 * j + 2 * i], dk_acc[4 * j + 2 * i + 1]);
+          *reinterpret_cast<float2*>(dvrow + 8 * j + 2 * t) =
+              make_float2(dv_acc[4 * j + 2 * i], dv_acc[4 * j + 2 * i + 1]);
         }
       }
     }
-    __syncthreads();  // every warp is done with buf before it is reloaded
   }
-  cp_async_wait<0>();
-
-  store_rows_f32<D>(dk, key_off, key_a, Sk, t, dk_acc, 0);
-  store_rows_f32<D>(dk, key_off, key_b, Sk, t, dk_acc, 1);
-  store_rows_f32<D>(dv, key_off, key_a, Sk, t, dv_acc, 0);
-  store_rows_f32<D>(dv, key_off, key_b, Sk, t, dv_acc, 1);
 }
 
 struct Args {
@@ -602,18 +665,32 @@ int launch_dq(const Args& a, float* dq, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int D>
-int launch_dkdv(const Args& a, float* dk, float* dv, cudaStream_t stream) {
-  constexpr int smem = 6 * kTileRows * (D + 8) * sizeof(bf16)
-                       + 4 * kTileRows * sizeof(float);
+template <int DP>
+int launch_dkdv(const Args& a, int D, const int64_t* strides, float* dk,
+                float* dv, cudaStream_t stream) {
+  if (a.B > 65535 || (a.Sk + kDkdvKeys - 1) / kDkdvKeys > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap tq, tk, tv, tdo;
+  int rc = hopper::encode_bhsd(&tq, a.q, a.B, a.H, a.Sq, D, strides,
+                               kDkdvRows);
+  if (rc == 0)
+    rc = hopper::encode_bhsd(&tk, a.k, a.B, a.H, a.Sk, D, strides + 3,
+                             kDkdvKeys);
+  if (rc == 0)
+    rc = hopper::encode_bhsd(&tv, a.v, a.B, a.H, a.Sk, D, strides + 6,
+                             kDkdvKeys);
+  if (rc == 0)
+    rc = hopper::encode_bhsd(&tdo, a.dout, a.B, a.H, a.Sq, D, strides + 9,
+                             kDkdvRows);
+  if (rc != 0) return rc;
+  constexpr int smem = DkdvSmem<DP>::kBytes;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dkdv_kernel<D>,
+      flash_bwd_dkdv_kernel<DP>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid((a.Sk + kTileRows - 1) / kTileRows, a.H, a.B);
-  flash_bwd_dkdv_kernel<D><<<grid, kThreads, smem, stream>>>(
-      a.q, a.k, a.v, a.dout, a.lse, a.delta, dk, dv, a.H, a.Sq, a.Sk,
-      a.causal, a.qs, a.ks, a.vs, a.dos);
+  dim3 grid(a.H, a.B, (a.Sk + kDkdvKeys - 1) / kDkdvKeys);
+  flash_bwd_dkdv_kernel<DP><<<grid, kDkdvThreads, smem, stream>>>(
+      tq, tk, tv, tdo, a.lse, a.delta, dk, dv, a.H, a.Sq, a.Sk, D, a.causal);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -684,12 +761,10 @@ extern "C" int flash_bwd_dkdv_bf16(const void* q, const void* k,
                            causal, strides);
   if (rc) return rc;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (D < 16 || D > 128 || D % 16)
+    return static_cast<int>(cudaErrorInvalidValue);
   float* odk = static_cast<float*>(dk);
   float* odv = static_cast<float*>(dv);
-  switch (D) {
-#define RT_CASE(d) case d: return launch_dkdv<d>(a, odk, odv, s);
-    RT_D_CASES(RT_CASE)
-#undef RT_CASE
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  if (D <= 64) return launch_dkdv<64>(a, D, strides, odk, odv, s);
+  return launch_dkdv<128>(a, D, strides, odk, odv, s);
 }

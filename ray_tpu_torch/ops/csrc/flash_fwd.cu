@@ -12,45 +12,60 @@
 //   written in place, with no transposed copies.  Strides are multiples
 //   of 8 elements and pointers 16-byte aligned (the wrapper checks).
 //   Causal masks key j for query i when j > i (absolute row/column
-//   index, as the reference does).  GQA reads kv head h / (Hq / Hkv); K/V are never
-//   expanded.  A row with every key masked gives o = 0, lse = -1e30.
+//   index, as the reference does).  GQA reads kv head h / (Hq / Hkv); K/V
+//   are never expanded.  A row with every key masked gives o = 0,
+//   lse = -1e30 (with Sk = 0, every row).
 //
-// Design.  One thread block (4 warps) per (q tile of 64 rows, head,
-// batch); each warp owns 16 query rows.  The block loops over 64-key
-// tiles of K/V, skipping tiles entirely above the causal diagonal, and
-// keeps the softmax online in f32 registers (running max m, running sum
-// l, accumulator o), so the (Sq, Sk) score matrix never reaches device
-// memory.  K/V tiles are staged in shared memory with cp.async
-// (zero-filled past Sk), each tile's load overlapping the other
-// matrix's product; Q fragments stay in registers for the whole loop.
-// Both products (S = Q K^T and O += P V) run on the tensor cores with
-// mma.sync m16n8k16 bf16 -> f32; P is rounded to bf16 before the
-// PV product exactly as the reference casts p to v's dtype.  Only the
-// tile the diagonal crosses and the ragged last tile are masked.
+// Design (wgmma + TMA, warp-specialised).  One block of three
+// warpgroups per (q tile of 128 rows, head, batch), the tiles with the
+// most keys launched first.  Warpgroup 0 is the producer: it gives up
+// registers (setmaxnreg) and one of its threads issues every load with
+// TMA, Q once and K/V 128-key tiles through a two-stage ring in shared
+// memory, each stage with a "full" mbarrier for K, one for V and an
+// "empty" one the consumers release.  Warpgroups 1 and 2 are consumers
+// that own 64 q rows each and take the freed registers.  Per K/V tile a
+// consumer computes S = Q K^T with wgmma m64n128k16 reading both
+// operands from shared memory, keeps the softmax online in f32 registers
+// on S's accumulator fragment (row max and sum reduced over the four
+// threads of a row), rounds P to bf16 in registers, where the
+// accumulator layout of S is already the A-fragment layout of the next
+// product, and computes O += P V with P as the register A operand and V
+// read MN-major (D contiguous) from shared memory.  Neither S nor P
+// reaches memory.  K/V tiles are walked from the last (the one the causal
+// diagonal or the ragged edge crosses: the only ones masked) down to the
+// first.  Head dimensions up to 64 use one 64-column box per tile, 80 to
+// 128 two; TMA zero-fills the columns past D and the rows past Sq or Sk,
+// and neither is stored.
 //
 // Bound.  At the main path's shape (B=4, H=8, S=2048, D=128, causal)
 // one call does ~3.4e10 FLOP and moves ~67 MB: compute-bound on the
-// H100 (~35 us at 989 TFLOP/s vs ~20 us at 3.35 TB/s).  This first
-// design leaves for later what reaches that bound: wgmma (warpgroup
-// MMA reading K/V straight from shared memory), TMA loads with
-// mbarriers, a multi-stage K/V ring, and warp specialisation
-// (producer warp + consumer warpgroups).
+// H100 (~35 us at 989 TFLOP/s vs ~20 us at 3.35 TB/s).  wgmma reads its
+// operands from shared memory without staging them through registers, so
+// the tensor cores, the exponentials and the one-block-per-SM occupancy
+// are what is left; the consumers do not yet overlap one tile's softmax
+// with the next tile's products inside a warpgroup.
 //
 // Interface: plain C, loaded with ctypes.  The kernel launches on the
-// caller's stream, allocates nothing, and the launcher returns
-// cudaGetLastError() (0 on success).
+// caller's stream, allocates nothing, and the launcher returns 0 or a
+// CUDA error code (cudaGetLastError() after the launch).
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
 
-constexpr int kBlockM = 64;   // query rows per block (16 per warp)
-constexpr int kBlockN = 64;   // keys per K/V tile
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
+using namespace hopper;
+
+constexpr int kBlockM = 128;   // q rows per block, 64 per consumer warpgroup
+constexpr int kBlockN = 128;   // keys per K/V tile
+constexpr int kStages = 2;     // depth of the K/V ring
+constexpr int kThreads = 384;  // producer warpgroup + 2 consumer warpgroups
+constexpr int kBoxBytes = 128 * 128;  // one (128 rows, 64 columns) bf16 box
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kMaskedLse = -1e30f;
 
@@ -59,293 +74,241 @@ struct Strides {
   int64_t b, h, s;
 };
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
+// Shared memory of one block, head dimension padded to DP (64 or 128).
+template <int DP>
+struct Smem {
+  static constexpr int kTile = DP / 64 * kBoxBytes;  // a Q, K or V tile
+  static constexpr int kQ = 0;
+  static constexpr int kK = kTile;                    // [kStages]
+  static constexpr int kV = kK + kStages * kTile;     // [kStages]
+  static constexpr int kBars = kV + kStages * kTile;
+  // full_q, full_k[kStages], full_v[kStages], empty[kStages]; then the
+  // slack that aligns the base to 1024 bytes.
+  static constexpr int kBytes = kBars + 8 * (1 + 3 * kStages) + 1024;
+};
 
-// 16-byte async copy global -> shared; src_bytes = 0 zero-fills.
-__device__ __forceinline__ void cp_async_16(void* dst, const void* src,
-                                            bool valid) {
-  const int src_bytes = valid ? 16 : 0;
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(smem_addr(dst)), "l"(src), "r"(src_bytes));
-}
+template <int DP>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
+                 const __grid_constant__ CUtensorMap tk,
+                 const __grid_constant__ CUtensorMap tv,
+                 __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                 int Hq, int Hkv, int Sq, int Sk, int D, int causal,
+                 Strides os) {
+  using L = Smem<DP>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  uint64_t* full_q = reinterpret_cast<uint64_t*>(smem + L::kBars);
+  uint64_t* full_k = full_q + 1;
+  uint64_t* full_v = full_k + kStages;
+  uint64_t* empty = full_v + kStages;
 
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4],
-                                            const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 "
-      "{%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-// c (16x8 f32) += a (16x16 bf16, row) * b (16x8 bf16, col).
-__device__ __forceinline__ void mma_bf16(float (&c)[4],
-                                         const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// Rows [row0, row0 + 64) of a (rows, D) matrix with row stride `stride`
-// (elements) into a shared tile of
-// row stride D + 8 (the pad keeps ldmatrix free of bank conflicts);
-// rows at or past `rows` are zero-filled.
-template <int D>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* tile,
-                                          const __nv_bfloat16* src,
-                                          int64_t stride, int row0,
-                                          int rows) {
-  constexpr int kChunks = D / 8;  // 16-byte chunks per row
-  constexpr int kLd = D + 8;
-  for (int c = threadIdx.x; c < kBlockN * kChunks; c += kThreads) {
-    const int r = c / kChunks;
-    const int col = (c % kChunks) * 8;
-    const int gr = row0 + r;
-    const bool valid = gr < rows;
-    const __nv_bfloat16* p = src + (valid ? gr : 0) * stride + col;
-    cp_async_16(tile + r * kLd + col, p, valid);
-  }
-}
-
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
-                 const __nv_bfloat16* __restrict__ k,
-                 const __nv_bfloat16* __restrict__ v,
-                 __nv_bfloat16* __restrict__ o,
-                 float* __restrict__ lse,
-                 int Hq, int Hkv, int Sq, int Sk, int causal,
-                 Strides qs, Strides ks, Strides vs, Strides os) {
-  static_assert(D % 16 == 0 && D <= 128, "D must be a multiple of 16");
-  constexpr int kLd = D + 8;
-  constexpr int kSteps = D / 16;       // k-steps of Q K^T
-  constexpr int kTilesS = kBlockN / 8; // 8-wide column tiles of S
-  constexpr int kTilesO = D / 8;       // 8-wide column tiles of O
-
-  __shared__ __align__(128) __nv_bfloat16 sK[kBlockN * kLd];
-  __shared__ __align__(128) __nv_bfloat16 sV[kBlockN * kLd];
-
-  // Longest causal rows first: the last q tile has the most k tiles.
-  const int qt = gridDim.x - 1 - blockIdx.x;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int hk = h / (Hq / Hkv);
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int g = lane >> 2;  // fragment row within 8
-  const int t = lane & 3;   // fragment column pair
-  const int q0 = qt * kBlockM;
-
-  const size_t lse_off = (size_t)(b * Hq + h) * Sq;
-  const __nv_bfloat16* qb = q + b * qs.b + h * qs.h;
-  const __nv_bfloat16* kb = k + b * ks.b + hk * ks.h;
-  const __nv_bfloat16* vb = v + b * vs.b + hk * vs.h;
-  __nv_bfloat16* ob = o + b * os.b + h * os.h;
-
-  // Q tile: stage through sK, keep this warp's 16 rows as A fragments.
-  uint32_t qf[kSteps][4];
-  load_tile<D>(sK, qb, qs.s, q0, Sq);
-  cp_async_commit();
-  cp_async_wait<0>();
-  __syncthreads();
-#pragma unroll
-  for (int kk = 0; kk < kSteps; ++kk) {
-    ldmatrix_x4(qf[kk], sK + (warp * 16 + (lane % 16)) * kLd + kk * 16
-                            + (lane / 16) * 8);
-  }
-  __syncthreads();
-
-  float acc[kTilesO][4];
-#pragma unroll
-  for (int n = 0; n < kTilesO; ++n) {
-    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-  }
-  float m[2] = {-INFINITY, -INFINITY};  // running max (natural units)
-  float l[2] = {0.f, 0.f};              // this thread's partial sums
-  const int row_a = q0 + warp * 16 + g;
-  const int row_b = row_a + 8;
-
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  // Longest causal rows first: the last q tile has the most K/V tiles.
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * kBlockM;
   const int kv_end = causal ? min(Sk, q0 + kBlockM) : Sk;
   const int n_tiles = (kv_end + kBlockN - 1) / kBlockN;
 
-  // Two-deep copy pipeline on single K and V buffers: K of tile j+1
-  // loads while tile j's softmax and PV product run, V of tile j+1 while
-  // tile j+1's QK^T runs.  Every step commits one group (empty past the
-  // last tile), so wait_group<1> always means "all but the newest".
-  if (n_tiles > 0) load_tile<D>(sK, kb, ks.s, 0, Sk);
-  cp_async_commit();
-  if (n_tiles > 0) load_tile<D>(sV, vb, vs.s, 0, Sk);
-  cp_async_commit();
-
-  for (int j = 0; j < n_tiles; ++j) {
-    const int k0 = j * kBlockN;
-    cp_async_wait<1>();  // K_j landed; V_j may still be in flight
-    __syncthreads();
-
-    // S = Q K^T for this warp's 16 rows x 64 keys.
-    float s[kTilesS][4];
-#pragma unroll
-    for (int n = 0; n < kTilesS; ++n) {
-      s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+  if (threadIdx.x == 0) {
+    mbar_init(full_q, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full_k + s, 1);
+      mbar_init(full_v + s, 1);
+      mbar_init(empty + s, 2);  // one arrival per consumer warpgroup
     }
-#pragma unroll
-    for (int kk = 0; kk < kSteps; ++kk) {
-#pragma unroll
-      for (int np = 0; np < kTilesS / 2; ++np) {
-        uint32_t bf[4];
-        ldmatrix_x4(bf, sK + (np * 16 + (lane % 8) + (lane / 16) * 8) * kLd
-                            + kk * 16 + ((lane / 8) % 2) * 8);
-        mma_bf16(s[2 * np], qf[kk], bf[0], bf[1]);
-        mma_bf16(s[2 * np + 1], qf[kk], bf[2], bf[3]);
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    // Producer warpgroup: one thread issues every load.
+    setmaxnreg_dec<24>();
+    if (threadIdx.x == 0) {
+      const int hk = h / (Hq / Hkv);
+      mbar_expect_tx(full_q, L::kTile);
+      for (int x = 0; x < DP / 64; ++x) {
+        tma_load_4d(smem + L::kQ + x * kBoxBytes, &tq, full_q, 64 * x, q0,
+                    h, b);
       }
-    }
-    __syncthreads();  // every warp is done with sK
-    if (j + 1 < n_tiles) load_tile<D>(sK, kb, ks.s, k0 + kBlockN, Sk);
-    cp_async_commit();
-
-    // Mask only the tile the diagonal crosses and the ragged edge.
-    const bool ragged = k0 + kBlockN > Sk;
-    const bool diag = causal && (k0 + kBlockN - 1 > q0);
-    if (ragged || diag) {
-#pragma unroll
-      for (int n = 0; n < kTilesS; ++n) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int col = k0 + n * 8 + 2 * t + (e & 1);
-          const int row = e < 2 ? row_a : row_b;
-          const bool ok = col < Sk && (!causal || col <= row);
-          if (!ok) s[n][e] = -INFINITY;
+      for (int it = 0; it < n_tiles; ++it) {
+        const int kt = n_tiles - 1 - it;
+        const int st = it % kStages;
+        mbar_wait(empty + st, ((it / kStages) & 1) ^ 1);
+        mbar_expect_tx(full_k + st, L::kTile);
+        for (int x = 0; x < DP / 64; ++x) {
+          tma_load_4d(smem + L::kK + st * L::kTile + x * kBoxBytes, &tk,
+                      full_k + st, 64 * x, kt * kBlockN, hk, b);
+        }
+        mbar_expect_tx(full_v + st, L::kTile);
+        for (int x = 0; x < DP / 64; ++x) {
+          tma_load_4d(smem + L::kV + st * L::kTile + x * kBoxBytes, &tv,
+                      full_v + st, 64 * x, kt * kBlockN, hk, b);
         }
       }
     }
+  } else {
+    // Consumer warpgroups: 64 q rows each.
+    setmaxnreg_inc<240>();
+    const int tid = threadIdx.x % 128;
+    const int wq0 = q0 + (threadIdx.x / 128 - 1) * 64;
+    const int row_a = wq0 + (tid / 32) * 16 + (tid % 32) / 4;
+    const int row_b = row_a + 8;
+    const int t = tid % 4;  // column pair within each 8-column group
+    const uint32_t sq = smem_u32(smem + L::kQ) + (wq0 - q0) * 128;
 
-    // Online softmax: new row max over this tile (quad of 4 lanes
-    // shares a row), rescale what was accumulated so far.
-    float mx[2] = {m[0], m[1]};
+    float acc[DP / 2];          // O: 64 rows x DP
+    float s[kBlockN / 2];       // S: 64 rows x 128 keys
+    uint32_t pf[kBlockN / 16][4];  // P as A fragments, 16 keys each
 #pragma unroll
-    for (int n = 0; n < kTilesS; ++n) {
-      mx[0] = fmaxf(mx[0], fmaxf(s[n][0], s[n][1]));
-      mx[1] = fmaxf(mx[1], fmaxf(s[n][2], s[n][3]));
+    for (int r = 0; r < DP / 2; ++r) acc[r] = 0.f;
+    float m[2] = {-INFINITY, -INFINITY};  // running max (natural units)
+    float l[2] = {0.f, 0.f};              // this thread's partial sums
+
+    mbar_wait(full_q, 0);
+    for (int it = 0; it < n_tiles; ++it) {
+      const int st = it % kStages;
+      const uint32_t ph = (it / kStages) & 1;
+      mbar_wait(full_k + st, ph);
+      const int k0 = (n_tiles - 1 - it) * kBlockN;
+      const uint32_t sk = smem_u32(smem + L::kK + st * L::kTile);
+
+      // S = Q K^T, both K-major; a 16-wide step over D moves 32 bytes
+      // inside a 64-column box.  The steps past D add TMA's zero columns.
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < DP / 16; ++kk) {
+        const uint32_t off = (kk / 4) * kBoxBytes + (kk % 4) * 32;
+        wgmma_ss<0>(s, desc_sw128(sq + off, 16, 1024),
+                    desc_sw128(sk + off, 16, 1024), kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(s);
+
+      // Mask only the tile the diagonal crosses and the ragged edge.
+      if (k0 + kBlockN > Sk || (causal && k0 + kBlockN - 1 > wq0)) {
+#pragma unroll
+        for (int r = 0; r < kBlockN / 2; ++r) {
+          const int col = k0 + 8 * (r / 4) + 2 * t + (r & 1);
+          const int row = (r & 2) ? row_b : row_a;
+          if (col >= Sk || (causal && col > row)) s[r] = -INFINITY;
+        }
+      }
+
+      // Online softmax: new row max over this tile (4 threads share a
+      // row), rescale what was accumulated so far.
+      float mx[2] = {m[0], m[1]};
+#pragma unroll
+      for (int r = 0; r < kBlockN / 2; r += 4) {
+        mx[0] = fmaxf(mx[0], fmaxf(s[r], s[r + 1]));
+        mx[1] = fmaxf(mx[1], fmaxf(s[r + 2], s[r + 3]));
+      }
+      float mb[2], alpha[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+        // Every key so far masked: keep p = 0 (exp2(-inf - 0)).
+        mb[i] = mx[i] == -INFINITY ? 0.f : mx[i] * kLog2e;
+        alpha[i] = exp2f(m[i] * kLog2e - mb[i]);
+        m[i] = mx[i];
+      }
+      float rs[2] = {0.f, 0.f};
+#pragma unroll
+      for (int r = 0; r < kBlockN / 2; r += 2) {
+        const int i = (r >> 1) & 1;  // row a or row b
+        const float p0 = exp2f(fmaf(s[r], kLog2e, -mb[i]));
+        const float p1 = exp2f(fmaf(s[r + 1], kLog2e, -mb[i]));
+        rs[i] += p0 + p1;
+        // Accumulator registers 8k..8k+7, in pairs, are the A fragment
+        // of keys 16k..16k+15.
+        pf[r / 8][(r % 8) / 2] = pack_bf16(p0, p1);
+      }
+      l[0] = l[0] * alpha[0] + rs[0];
+      l[1] = l[1] * alpha[1] + rs[1];
+#pragma unroll
+      for (int r = 0; r < DP / 2; ++r) acc[r] *= alpha[(r >> 1) & 1];
+
+      // O += P V: P from registers, V MN-major (its rows are the keys);
+      // a 16-key step moves 16 rows (2048 bytes).
+      mbar_wait(full_v + st, ph);
+      const uint32_t sv = smem_u32(smem + L::kV + st * L::kTile);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kBlockN / 16; ++kk) {
+        wgmma_rs<1>(acc, pf[kk], desc_sw128(sv + kk * 2048, kBoxBytes, 1024),
+                    1);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc);
+      fence_regs(pf);
+      if (tid == 0) mbar_arrive(empty + st);
     }
-    float mb[2], alpha[2];
+
+    // Finalize: full row sums across the quad, o = acc / l, lse.
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
-      // Every key so far masked: keep p = 0 (exp2(-inf - 0)).
-      mb[i] = mx[i] == -INFINITY ? 0.f : mx[i] * kLog2e;
-      alpha[i] = exp2f(m[i] * kLog2e - mb[i]);
-      m[i] = mx[i];
+      l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+      l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
     }
-
-    uint32_t pf[kTilesS / 2][4];  // P as A fragments, 16 keys each
-    float rs[2] = {0.f, 0.f};
 #pragma unroll
-    for (int n = 0; n < kTilesS; ++n) {
-      const float p0 = exp2f(fmaf(s[n][0], kLog2e, -mb[0]));
-      const float p1 = exp2f(fmaf(s[n][1], kLog2e, -mb[0]));
-      const float p2 = exp2f(fmaf(s[n][2], kLog2e, -mb[1]));
-      const float p3 = exp2f(fmaf(s[n][3], kLog2e, -mb[1]));
-      rs[0] += p0 + p1;
-      rs[1] += p2 + p3;
-      const int half = (n % 2) * 2;
-      pf[n / 2][half] = pack_bf16(p0, p1);
-      pf[n / 2][half + 1] = pack_bf16(p2, p3);
-    }
-    l[0] = l[0] * alpha[0] + rs[0];
-    l[1] = l[1] * alpha[1] + rs[1];
+    for (int i = 0; i < 2; ++i) {
+      const int row = i ? row_b : row_a;
+      const bool live = l[i] > 0.f;
+      const float inv = live ? 1.f / l[i] : 0.f;
+      if (row >= Sq) continue;
+      __nv_bfloat16* orow = o + b * os.b + h * os.h + row * os.s;
 #pragma unroll
-    for (int n = 0; n < kTilesO; ++n) {
-      acc[n][0] *= alpha[0];
-      acc[n][1] *= alpha[0];
-      acc[n][2] *= alpha[1];
-      acc[n][3] *= alpha[1];
-    }
-
-    cp_async_wait<1>();  // V_j landed; K_{j+1} may still be in flight
-    __syncthreads();
-    // O += P V.
-#pragma unroll
-    for (int kk = 0; kk < kBlockN / 16; ++kk) {
-#pragma unroll
-      for (int np = 0; np < kTilesO / 2; ++np) {
-        uint32_t bf[4];
-        ldmatrix_x4_trans(
-            bf, sV + (kk * 16 + (lane % 8) + ((lane / 8) % 2) * 8) * kLd
-                    + np * 16 + (lane / 16) * 8);
-        mma_bf16(acc[2 * np], pf[kk], bf[0], bf[1]);
-        mma_bf16(acc[2 * np + 1], pf[kk], bf[2], bf[3]);
+      for (int j = 0; j < DP / 8; ++j) {
+        if (8 * j < D) {
+          *reinterpret_cast<uint32_t*>(orow + 8 * j + 2 * t) = pack_bf16(
+              acc[4 * j + 2 * i] * inv, acc[4 * j + 2 * i + 1] * inv);
+        }
+      }
+      if (t == 0) {
+        lse[static_cast<int64_t>(b * Hq + h) * Sq + row] =
+            live ? m[i] + logf(l[i]) : kMaskedLse;
       }
     }
-    __syncthreads();  // every warp is done with sV
-    if (j + 1 < n_tiles) load_tile<D>(sV, vb, vs.s, k0 + kBlockN, Sk);
-    cp_async_commit();
-  }
-  cp_async_wait<0>();
-
-  // Finalize: full row sums across the quad, o = acc / l, lse.
-  float inv[2], row_lse[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
-    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
-    const bool live = l[i] > 0.f;
-    inv[i] = live ? 1.f / l[i] : 0.f;
-    row_lse[i] = live ? m[i] + logf(l[i]) : kMaskedLse;
-  }
-  const int rows[2] = {row_a, row_b};
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    if (rows[i] >= Sq) continue;
-    __nv_bfloat16* orow = ob + rows[i] * os.s;
-#pragma unroll
-    for (int n = 0; n < kTilesO; ++n) {
-      *reinterpret_cast<uint32_t*>(orow + n * 8 + 2 * t) =
-          pack_bf16(acc[n][2 * i] * inv[i], acc[n][2 * i + 1] * inv[i]);
-    }
-    if (t == 0) lse[lse_off + rows[i]] = row_lse[i];
   }
 }
 
-template <int D>
-void launch(const void* q, const void* k, const void* v, void* o,
-            void* lse, int B, int Hq, int Hkv, int Sq, int Sk,
-            int causal, Strides qs, Strides ks, Strides vs, Strides os,
-            cudaStream_t stream) {
-  dim3 grid((Sq + kBlockM - 1) / kBlockM, Hq, B);
-  flash_fwd_kernel<D><<<grid, kThreads, 0, stream>>>(
-      static_cast<const __nv_bfloat16*>(q),
-      static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v),
-      static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse), Hq, Hkv,
-      Sq, Sk, causal, qs, ks, vs, os);
+// Sk = 0: every row is fully masked.  (No tensor map can describe an
+// empty K/V.)
+__global__ void flash_fwd_no_keys(__nv_bfloat16* __restrict__ o,
+                                  float* __restrict__ lse, int Hq, int Sq,
+                                  int D, Strides os) {
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  for (int row = threadIdx.x; row < Sq; row += blockDim.x) {
+    __nv_bfloat16* orow = o + b * os.b + h * os.h + row * os.s;
+    for (int c = 0; c < D; ++c) orow[c] = __float2bfloat16(0.f);
+    lse[static_cast<int64_t>(b * Hq + h) * Sq + row] = kMaskedLse;
+  }
+}
+
+template <int DP>
+int launch(const void* q, const void* k, const void* v, void* o, void* lse,
+           int B, int Hq, int Hkv, int Sq, int Sk, int D, int causal,
+           const int64_t* strides, cudaStream_t stream) {
+  CUtensorMap tq, tk, tv;
+  int rc = encode_bhsd(&tq, q, B, Hq, Sq, D, strides, kBlockM);
+  if (rc == 0) rc = encode_bhsd(&tk, k, B, Hkv, Sk, D, strides + 3, kBlockN);
+  if (rc == 0) rc = encode_bhsd(&tv, v, B, Hkv, Sk, D, strides + 6, kBlockN);
+  if (rc != 0) return rc;
+  constexpr int smem = Smem<DP>::kBytes;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dim3 grid(Hq, B, (Sq + kBlockM - 1) / kBlockM);
+  flash_fwd_kernel<DP><<<grid, kThreads, smem, stream>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse),
+      Hq, Hkv, Sq, Sk, D, causal,
+      Strides{strides[9], strides[10], strides[11]});
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -355,23 +318,23 @@ extern "C" int flash_fwd_bf16(const void* q, const void* k, const void* v,
                               int Sq, int Sk, int D, int causal,
                               const int64_t* strides, void* stream) {
   // strides: 12 element strides, (batch, head, row) of q, k, v, o.
-  if (B <= 0 || Hq <= 0 || Hkv <= 0 || Hq % Hkv || Sq <= 0 || Sk < 0)
+  if (B <= 0 || Hq <= 0 || Hkv <= 0 || Hq % Hkv || Sq <= 0 || Sk < 0 ||
+      B > 65535 || (Sq + kBlockM - 1) / kBlockM > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
+  if (D < 16 || D > 128 || D % 16) return static_cast<int>(cudaErrorInvalidValue);
   for (int i = 0; i < 12; ++i)
     if (strides[i] % 8) return static_cast<int>(cudaErrorInvalidValue);
-  const Strides qs{strides[0], strides[1], strides[2]};
-  const Strides ks{strides[3], strides[4], strides[5]};
-  const Strides vs{strides[6], strides[7], strides[8]};
-  const Strides os{strides[9], strides[10], strides[11]};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (D) {
-#define RT_CASE(d) \
-    case d: launch<d>(q, k, v, o, lse, B, Hq, Hkv, Sq, Sk, causal, qs, ks, \
-                      vs, os, s); break;
-    RT_CASE(16) RT_CASE(32) RT_CASE(48) RT_CASE(64)
-    RT_CASE(80) RT_CASE(96) RT_CASE(112) RT_CASE(128)
-#undef RT_CASE
-    default: return static_cast<int>(cudaErrorInvalidValue);
+  if (Sk == 0) {
+    flash_fwd_no_keys<<<dim3(Hq, B), 128, 0, s>>>(
+        static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse), Hq, Sq, D,
+        Strides{strides[9], strides[10], strides[11]});
+    return static_cast<int>(cudaGetLastError());
   }
-  return static_cast<int>(cudaGetLastError());
+  if (D <= 64) {
+    return launch<64>(q, k, v, o, lse, B, Hq, Hkv, Sq, Sk, D, causal,
+                      strides, s);
+  }
+  return launch<128>(q, k, v, o, lse, B, Hq, Hkv, Sq, Sk, D, causal, strides,
+                     s);
 }

@@ -48,15 +48,16 @@ launch_counts = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkdv": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# Library -> (sources under csrc/, {C function: (restype, argtypes)}).
-# Pointers, the int64 strides array and the stream are c_void_p.
+# Library -> (sources under csrc/: its .cu file and the headers that file
+# includes, {C function: (restype, argtypes)}).  Pointers, the int64
+# strides array and the stream are c_void_p.
 _LIBS = {
-    "flash_fwd": (["flash_fwd.cu"], {
+    "flash_fwd": (["flash_fwd.cu", "hopper.cuh"], {
         # q, k, v, o, lse; B, Hq, Hkv, Sq, Sk, D, causal; strides[12]
         # (q, k, v, o); stream.
         "flash_fwd_bf16": (_I, [_P] * 5 + [_I] * 7 + [_P] * 2),
     }),
-    "flash_bwd": (["flash_bwd.cu"], {
+    "flash_bwd": (["flash_bwd.cu", "hopper.cuh"], {
         # q, k, v, do, o, lse, delta (written), dq; B, H, Sq, Sk, D,
         # causal; strides[15] (q, k, v, do, o); stream.
         "flash_bwd_dq_bf16": (_I, [_P] * 8 + [_I] * 6 + [_P] * 2),

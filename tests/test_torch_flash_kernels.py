@@ -66,12 +66,13 @@ def _randn(g, layout, b, h, s, d):
     ((2, 8, 2, 256, 256, 128), True),
     ((1, 4, 4, 100, 190, 64), False),
     ((1, 2, 1, 77, 77, 16), True),
+    ((1, 4, 2, 100, 0, 64), False),
 ])
 def test_kernel_matches_plain_version_on_card(shape, causal, layout):
     """The sm_90a forward kernel against its plain version on the same
     bf16 inputs, on contiguous (B, H, S, D) tensors and on (B, H, S, D)
     views of the model's (B, S, H, D) tensors, which it reads through
-    their strides."""
+    their strides; with Sk = 0 every row is fully masked."""
     _needs_card()
     B, Hq, Hkv, Sq, Sk, D = shape
     g = torch.Generator(device="cuda").manual_seed(0)
@@ -116,6 +117,30 @@ def test_bwd_kernels_match_plain_version_on_card(shape, causal, layout):
     for name, got, ref in zip(("dq", "dk", "dv"), grads, refs):
         assert got.dtype == torch.float32 and got.shape == ref.shape
         assert torch.isfinite(got).all(), name
+        err = _grad_err(got, ref)
+        assert err <= TOL_GRAD_REL, (name, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", tfa._SUPPORTED_D)
+def test_every_head_dim_on_card(D):
+    """Every supported head dimension runs on the card, forward and
+    backward, against the plain versions: up to 64 the kernels use one
+    64-column box per tile, above it two, and TMA zero-fills the columns
+    past D.  Ragged Sq != Sk, causal, GQA in the forward."""
+    _needs_card()
+    g = torch.Generator(device="cuda").manual_seed(5)
+    q = _randn(g, "bshd", 1, 4, 150, D) * D ** -0.5
+    k, v = _randn(g, "bshd", 1, 2, 130, D), _randn(g, "bshd", 1, 2, 130, D)
+    o, lse = tfa._fwd(q, k, v, True)
+    ro, rl = tfa._fwd_reference(q, k, v, True)
+    assert (o.float() - ro.float()).abs().max().item() <= TOL_O
+    assert (lse - rl).abs().max().item() <= TOL_LSE
+    k, v = (t.repeat_interleave(2, dim=1) for t in (k, v))
+    do = _randn(g, "bshd", 1, 4, 150, D)
+    grads = tfa._bwd_impl(q, k, v, o, lse, do, True)
+    refs = tfa._bwd_reference(q, k, v, o, lse, do, True)
+    for name, got, ref in zip(("dq", "dk", "dv"), grads, refs):
         err = _grad_err(got, ref)
         assert err <= TOL_GRAD_REL, (name, err)
 
@@ -172,34 +197,46 @@ def test_zero_stride_gradient_takes_a_contiguous_copy_on_card(monkeypatch):
         assert err <= TOL_CHAIN_GRAD_REL, (name, err)
 
 
-# Planted faults: each inserts one line before an anchor of flash_bwd.cu
-# (a copy, built apart from the real library) so that a kernel drops one
-# 64-wide tile's contribution.  After the block's barrier every warp
-# skips alike, so the tile pipeline stays sound.
+# Planted faults: each inserts one line before an anchor of a kernel
+# source (a copy, built apart from the real library) so that a kernel
+# drops one tile's contribution.  B2 has no warp roles: after the block's
+# barrier every warp skips alike.  In B1 and B3 the consumer warpgroups
+# skip a tile after it has landed and still release its stage, so the
+# producer's ring runs on.
 _B2_ANCHOR = "    const bool masked = k0 + kTileRows > Sk ||"
-_B3_ANCHOR = "    const bool masked = q0 + kTileRows > Sq ||"
+_B3_ANCHOR = "        const int q0 = i * kDkdvRows;"
+_B1_ANCHOR = "      const int k0 = (n_tiles - 1 - it) * kBlockN;"
 _FAULTS = {
     # B2 skips the second k tile of every q tile past the first.
     "dq_skips_a_k_tile": (_B2_ANCHOR, "    if (j == 1) continue;\n", "dq"),
     # B2 skips it in the last q tile only (the block launched first).
     "dq_skips_a_k_tile_in_one_block": (
         _B2_ANCHOR, "    if (j == 1 && blockIdx.x == 0) continue;\n", "dq"),
-    # B3 skips the second q tile of every k tile but the last.
-    "dkdv_skips_a_q_tile": (_B3_ANCHOR,
-                            "    if (i == first + 1) continue;\n", "dv"),
+    # B3 skips the third 64-row q tile of every 128-key tile but the last
+    # (which has two).
+    "dkdv_skips_a_q_tile": (
+        _B3_ANCHOR, "        if (i == first + 2) { if (tid == 0) "
+        "mbar_arrive(empty + st); continue; }\n", "dv"),
+}
+_FWD_FAULTS = {
+    # B1 skips the second K/V tile it walks in every q tile past the first.
+    "fwd_skips_a_kv_tile": (
+        _B1_ANCHOR, "      if (it == 1) { mbar_wait(full_v + st, ph); "
+        "if (tid == 0) mbar_arrive(empty + st); continue; }\n"),
 }
 
 
-def _planted_library(tmp_path, anchor, line):
-    src = (_build.CSRC / "flash_bwd.cu").read_text()
+def _planted_library(tmp_path, source, anchor, line):
+    name = source.split(".")[0]
+    src = (_build.CSRC / source).read_text()
     assert src.count(anchor) == 1, anchor
-    cu = tmp_path / "flash_bwd_planted.cu"
+    cu = tmp_path / f"{name}_planted.cu"
     cu.write_text(src.replace(anchor, line + anchor))
-    so = tmp_path / "libflash_bwd_planted.so"
+    so = tmp_path / f"lib{name}_planted.so"
     subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", str(so),
                     str(cu)], check=True, capture_output=True)
     lib = ctypes.CDLL(str(so))
-    for fn, (restype, argtypes) in tfa._LIBS["flash_bwd"][1].items():
+    for fn, (restype, argtypes) in tfa._LIBS[name][1].items():
         getattr(lib, fn).restype = restype
         getattr(lib, fn).argtypes = argtypes
     return lib
@@ -224,7 +261,7 @@ def test_grad_check_refuses_planted_fault(fault, tmp_path, monkeypatch):
                     tfa._bwd_reference(q, k, v, o, lse, do, True)))
     real = dict(zip(("dq", "dk", "dv"),
                     tfa._bwd_impl(q, k, v, o, lse, do, True)))
-    lib = _planted_library(tmp_path, anchor, line)
+    lib = _planted_library(tmp_path, "flash_bwd.cu", anchor, line)
     real_lib = tfa._lib
     monkeypatch.setattr(tfa, "_lib", lambda name: lib if name == "flash_bwd"
                         else real_lib(name))
@@ -236,3 +273,37 @@ def test_grad_check_refuses_planted_fault(fault, tmp_path, monkeypatch):
           f"{planted_err:.3e} (tol {TOL_GRAD_REL})")
     assert real_err <= TOL_GRAD_REL
     assert planted_err > TOL_GRAD_REL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fault", sorted(_FWD_FAULTS))
+def test_fwd_check_refuses_planted_fault(fault, tmp_path, monkeypatch):
+    """At the forward path's shape and layout, (4, 8, 2048, 128) causal on
+    (B, S, H, D) views, the real forward kernel passes the check against
+    its plain version (|do| <= 1e-2, |dlse| <= 1e-3) and a copy of it that
+    drops one K/V tile fails it.  Prints both readings (run with
+    ``-s``)."""
+    _needs_card()
+    anchor, line = _FWD_FAULTS[fault]
+    B, H, S, D = 4, 8, 2048, 128
+    g = torch.Generator(device="cuda").manual_seed(6)
+    q = _randn(g, "bshd", B, H, S, D) * D ** -0.5
+    k, v = _randn(g, "bshd", B, H, S, D), _randn(g, "bshd", B, H, S, D)
+    ro, rl = tfa._fwd_reference(q, k, v, True)
+
+    def readings():
+        o, lse = tfa._fwd(q, k, v, True)
+        return ((o.float() - ro.float()).abs().max().item(),
+                (lse - rl).abs().max().item())
+
+    real = readings()
+    lib = _planted_library(tmp_path, "flash_fwd.cu", anchor, line)
+    real_lib = tfa._lib
+    monkeypatch.setattr(tfa, "_lib", lambda name: lib if name == "flash_fwd"
+                        else real_lib(name))
+    planted = readings()
+    print(f"{fault}: max|do|, max|dlse| real {real[0]:.3e}, {real[1]:.3e}; "
+          f"planted {planted[0]:.3e}, {planted[1]:.3e} (tol {TOL_O}, "
+          f"{TOL_LSE})")
+    assert real[0] <= TOL_O and real[1] <= TOL_LSE
+    assert planted[0] > TOL_O or planted[1] > TOL_LSE
