@@ -11,8 +11,8 @@ through the entry points a user would call, and checks the results:
 
 1. card name and power limit (nvidia-smi);
 2. kernel build (one nvcc per source, all started together), with its
-   time and ptxas register report; it fails if ptxas ignored the
-   warp-specialised kernels' setmaxnreg;
+   time and ptxas register report; it fails if ptxas ignored a kernel's
+   setmaxnreg or spilled its registers;
 3. flash forward kernel vs its plain version, bf16, at four shapes;
 4. kernel time vs its bound, the plain version and PyTorch's SDPA
    (timed as a yardstick only; the port never calls it), at the
@@ -98,10 +98,8 @@ TOL_GRAD_REL = 1e-3
 TOL_CHAIN_LOSS_REL = 1e-3
 # Train phase shape (the repo's llama_440m bench shape) and step counts.
 TRAIN_B, TRAIN_S, TRAIN_WARM, TRAIN_TIMED, CHAIN_STEPS = 8, 2048, 3, 10, 2
-# What each kernel is built from, for the kernels line.
-DESIGN = {"flash_fwd": "wgmma+tma, warp-specialised",
-          "flash_bwd_dq": "mma.sync",
-          "flash_bwd_dkdv": "wgmma+tma, warp-specialised"}
+# What every kernel is built from, for the kernels line.
+DESIGN = "wgmma+tma, warp-specialised"
 
 
 def fail(msg: str) -> None:
@@ -415,6 +413,8 @@ def main() -> None:
                                       else "")
             elif "spill" in line:
                 spill = line.split(",", 1)[-1].strip()
+                if re.search(r"[1-9]\d* bytes spill", spill):
+                    fail(f"ptxas spilled registers in {entry}: {spill}")
             elif "registers" in line and entry:
                 phase("build", f"ptxas {entry}: "
                       f"{line.split(':', 1)[-1].strip()}; {spill}")
@@ -739,7 +739,7 @@ def main() -> None:
 
     # 11. Kernels, then the result.
     kernels = [{
-        "name": "flash_fwd", "route": "cuda", "design": DESIGN["flash_fwd"],
+        "name": "flash_fwd", "route": "cuda", "design": DESIGN,
         "source": "ray_tpu_torch/ops/csrc/flash_fwd.cu",
         "replaces": "ray_tpu/ops/flash_attention.py:96",
         "launches": train_launches["flash_fwd"],
@@ -749,7 +749,7 @@ def main() -> None:
     for name, line, err in (("flash_bwd_dq", 216, worst_bwd["dq"]),
                             ("flash_bwd_dkdv", 264, worst_bwd["dkdv"])):
         kernels.append({
-            "name": name, "route": "cuda", "design": DESIGN[name],
+            "name": name, "route": "cuda", "design": DESIGN,
             "source": "ray_tpu_torch/ops/csrc/flash_bwd.cu",
             "replaces": f"ray_tpu/ops/flash_attention.py:{line}",
             "launches": train_launches[name], "max_abs_err": err,

@@ -78,6 +78,12 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t phase) {
       :: "r"(smem_u32(bar)), "r"(phase) : "memory");
 }
 
+// Named barrier `id` (1 to 15; 0 is __syncthreads) over `threads`
+// threads, e.g. the 128 of one warpgroup.
+__device__ __forceinline__ void bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(threads) : "memory");
+}
+
 // ---- TMA -----------------------------------------------------------------
 
 // One box of a rank-4 tensor map into shared memory; completion adds the

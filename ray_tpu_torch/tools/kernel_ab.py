@@ -9,10 +9,12 @@ and ``flash_bwd.cu`` are built with nvcc into ``DIR/ray_tpu_torch/ops/
 _build/`` beside this checkout's, and loaded with the C signatures of
 this checkout's wrappers, which both must share.  At the main path's
 shapes, causal bf16 on (B, H, S, D) views of (B, S, H, D) tensors, it
-holds each version of B1 (forward) and B3 (dk/dv) against the plain
-version, then times them in the order parent, change, change, parent
-(each reading the median of 5 rounds of 20 launches by CUDA events),
-prints one line per kernel and shape, and a JSON object last.
+holds each version of B1 (forward), B2 (dq, with its delta pre-pass), B3
+(dk/dv) and the B2 + B3 pair as ``_bwd_impl`` runs it against the plain
+versions (the backward by |got - ref|_2 / |ref|_2 of each gradient),
+then times them in the order parent, change, change, parent (each
+reading the median of 5 rounds of 20 launches by CUDA events), prints
+one line per kernel and shape, and a JSON object last.
 """
 
 from __future__ import annotations
@@ -108,6 +110,18 @@ def in_turns(fn_for):
             for v in ("parent", "change", "change", "parent")]
 
 
+def report(r):
+    """Add the parent/change ratio of the mean times to result ``r`` and
+    print its line."""
+    ms = {v: [t for n, t in r["ms"] if n == v] for v in ("parent", "change")}
+    r["speedup"] = statistics.mean(ms["parent"]) / statistics.mean(
+        ms["change"])
+    print(f"[ab] {r['kernel']} {r['shape']} causal bf16 (B,S,H,D) views: "
+          + ", ".join(f"{n} {t:.4f}" for n, t in r["ms"])
+          + f" ms (parent, change, change, parent); parent/change "
+          f"{r['speedup']:.3f}; check vs plain {r['check']}", flush=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", required=True, type=Path,
@@ -144,42 +158,41 @@ def main(argv=None) -> int:
             return run
 
         results.append({"kernel": "flash_fwd", "shape": shape,
-                        "check": errs,
-                        "ms": in_turns(fn_for)})
+                        "check": errs, "ms": in_turns(fn_for)})
+        report(results[-1])
         del q, k, v, ro, rl
 
     q, k, v, do = inputs(SHAPE_BWD, 8)
     o, lse = fa._fwd(q, k, v, True)
     bargs = fa._BwdArgs(q, k, v, o, lse, do, True)
     _, delta = fa._bwd_dq(bargs)
-    _, rk, rv = fa._bwd_reference(q, k, v, o, lse, do, True)
-    errs = {}
-    for name, libs in versions.items():
-        with using(libs):
-            dk, dv = fa._bwd_dkdv(bargs, delta)
-        errs[name] = tuple(((g - r).norm() / r.norm()).item()
-                           for g, r in ((dk, rk), (dv, rv)))
-
-    def fn_for_bwd(name):
-        libs = versions[name]
-
-        def run():
+    refs = fa._bwd_reference(q, k, v, o, lse, do, True)
+    # B2 (with its delta pre-pass), B3 on this checkout's delta, and the
+    # pair as _bwd_impl runs it; each checked against the plain version.
+    bwd = {"flash_bwd_dq": (lambda: fa._bwd_dq(bargs)[:1], refs[:1]),
+           "flash_bwd_dkdv": (lambda: fa._bwd_dkdv(bargs, delta), refs[1:]),
+           "flash_bwd_impl": (
+               lambda: fa._bwd_impl(q, k, v, o, lse, do, True), refs)}
+    for kernel, (call, ref) in bwd.items():
+        errs = {}
+        for name, libs in versions.items():
             with using(libs):
-                fa._bwd_dkdv(bargs, delta)
-        return run
+                got = call()
+            errs[name] = tuple(((g - r).norm() / r.norm()).item()
+                               for g, r in zip(got, ref))
 
-    results.append({"kernel": "flash_bwd_dkdv", "shape": SHAPE_BWD,
-                    "check": errs, "ms": in_turns(fn_for_bwd)})
+        def fn_for_bwd(name, call=call):
+            libs = versions[name]
 
-    for r in results:
-        ms = {v: [t for n, t in r["ms"] if n == v] for v in versions}
-        r["speedup"] = statistics.mean(ms["parent"]) / statistics.mean(
-            ms["change"])
-        print(f"[ab] {r['kernel']} {r['shape']} causal bf16 (B,S,H,D) "
-              f"views: " + ", ".join(f"{n} {t:.4f}" for n, t in r["ms"])
-              + f" ms (parent, change, change, parent); parent/change "
-              f"{r['speedup']:.3f}; check vs plain {r['check']}",
-              flush=True)
+            def run():
+                with using(libs):
+                    call()
+            return run
+
+        results.append({"kernel": kernel, "shape": SHAPE_BWD,
+                        "check": errs, "ms": in_turns(fn_for_bwd)})
+        report(results[-1])
+
     print(json.dumps({"card": smi[0] if smi else None, "results": results}),
           flush=True)
     return 0

@@ -95,11 +95,15 @@ def test_kernel_matches_plain_version_on_card(shape, causal, layout):
     ((1, 2, 77, 77, 16), True),
     ((1, 2, 130, 70, 32), True),
     ((1, 2, 100, 190, 64), True),
+    ((2, 3, 50, 50, 128), True),
+    ((2, 2, 200, 100, 128), False),
 ])
 def test_bwd_kernels_match_plain_version_on_card(shape, causal, layout):
     """dq (B2) and dk/dv (B3) against ``_bwd_reference`` on the same bf16
     inputs, with ragged tiles on both axes, each launch counter rising by
-    one per call."""
+    one per call.  Sq = 50 leaves B2's second consumer warpgroup (rows
+    64..127) without rows; Sq = 130 gives B2 a block whose second
+    warpgroup has none; Sk = 100 and 190 end inside a 64-key tile."""
     _needs_card()
     B, H, Sq, Sk, D = shape
     g = torch.Generator(device="cuda").manual_seed(1)
@@ -199,30 +203,35 @@ def test_zero_stride_gradient_takes_a_contiguous_copy_on_card(monkeypatch):
 
 # Planted faults: each inserts one line before an anchor of a kernel
 # source (a copy, built apart from the real library) so that a kernel
-# drops one tile's contribution.  B2 has no warp roles: after the block's
-# barrier every warp skips alike.  In B1 and B3 the consumer warpgroups
-# skip a tile after it has landed and still release its stage, so the
-# producer's ring runs on.
-_B2_ANCHOR = "    const bool masked = k0 + kTileRows > Sk ||"
+# drops one tile's contribution.  The consumer warpgroups skip a tile
+# after it has landed and, once all four of their warps have seen it,
+# still release its stage, so the producer's ring runs on.
+_B2_ANCHOR = "      if (skip) {"
 _B3_ANCHOR = "        const int q0 = i * kDkdvRows;"
 _B1_ANCHOR = "      const int k0 = (n_tiles - 1 - it) * kBlockN;"
+_RELEASE = ("bar_sync(threadIdx.x / 128, 128); if (tid == 0) "
+            "mbar_arrive(empty + st); continue;")
 _FAULTS = {
-    # B2 skips the second k tile of every q tile past the first.
-    "dq_skips_a_k_tile": (_B2_ANCHOR, "    if (j == 1) continue;\n", "dq"),
-    # B2 skips it in the last q tile only (the block launched first).
+    # B2 skips the second K/V tile it walks from the diagonal in every
+    # block.
+    "dq_skips_a_k_tile": (_B2_ANCHOR, "      skip = skip || it == 1;\n",
+                          "dq"),
+    # B2 skips it in the last q tile of each (b, h) only (the blocks
+    # launched first).
     "dq_skips_a_k_tile_in_one_block": (
-        _B2_ANCHOR, "    if (j == 1 && blockIdx.x == 0) continue;\n", "dq"),
+        _B2_ANCHOR, "      skip = skip || (it == 1 && blockIdx.z == 0);\n",
+        "dq"),
     # B3 skips the third 64-row q tile of every 128-key tile but the last
     # (which has two).
     "dkdv_skips_a_q_tile": (
-        _B3_ANCHOR, "        if (i == first + 2) { if (tid == 0) "
-        "mbar_arrive(empty + st); continue; }\n", "dv"),
+        _B3_ANCHOR, f"        if (i == first + 2) {{ {_RELEASE} }}\n",
+        "dv"),
 }
 _FWD_FAULTS = {
     # B1 skips the second K/V tile it walks in every q tile past the first.
     "fwd_skips_a_kv_tile": (
         _B1_ANCHOR, "      if (it == 1) { mbar_wait(full_v + st, ph); "
-        "if (tid == 0) mbar_arrive(empty + st); continue; }\n"),
+        f"{_RELEASE} }}\n"),
 }
 
 
