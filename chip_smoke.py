@@ -23,6 +23,21 @@ through the entry points a user would call, and checks the results:
 6. LLMServer(llama_440m, max_slots=8, max_len=512) answering 8
    concurrent requests (bf16: TTFT and decode tok/s), then an f32 engine
    whose first tokens must equal the argmax of the port's forward;
+6b. the paged serving plane at llama_440m (:func:`paged_phase`, block
+   size 16, the default 257 blocks): the bf16 planes paged, paged+int8,
+   paged+fp8 and paged+spec (spec_k=4, 6-layer self-draft) and a dense
+   engine, 3 rounds in turns of 8 requests (TTFT, decode tok/s,
+   allocator, pool bytes, accept rate, the pool sizes checked against
+   their reckoning), each pool's gather + scatter of one chunk against
+   its bound, the TTFT of 8 requests that share a 128-token prefix, cold
+   and warm; then its gates: f32
+   tokens identical across dense, paged, paged+spec with the self-draft
+   and with an independent llama_125m draft; f32 warm == cold with prefix
+   hits, a same-wave pair and a warm wave of 8 equal to dense; bf16
+   self-draft spec == independent-draft spec; the int8/fp8 error bounds
+   and fixed point on real K rows, with the card's bytes equal to the
+   CPU's; pool pressure (preemption, f32 tokens equal to the unpressured
+   run, the allocator back to the trie's count, typed shedding);
 7. flash backward kernels (dq, dk/dv) vs their plain version, bf16, at
    four shapes, one of them through autograd and one through GQA;
 8. their times vs their bounds, the plain version and SDPA's backward;
@@ -98,6 +113,8 @@ TOL_GRAD_REL = 1e-3
 TOL_CHAIN_LOSS_REL = 1e-3
 # Train phase shape (the repo's llama_440m bench shape) and step counts.
 TRAIN_B, TRAIN_S, TRAIN_WARM, TRAIN_TIMED, CHAIN_STEPS = 8, 2048, 3, 10, 2
+# Rounds of the paged phase's bf16 serving planes, run in turns.
+SERVE_ROUNDS = 3
 # What every kernel is built from, for the kernels line.
 DESIGN = "wgmma+tma, warp-specialised"
 
@@ -299,6 +316,343 @@ def run_requests(server, prompts, max_new):
     t0 = time.perf_counter()
     outs = asyncio.run(go())
     return outs, time.perf_counter() - t0
+
+
+def serve_numbers(outs, wall):
+    """(TTFT median, TTFT max, decode tok/s once every request has its
+    first token) of one round of requests."""
+    ttft = sorted(o["ttft_ms"] for o in outs)
+    new = sum(len(o["tokens"]) - 1 for o in outs)
+    return statistics.median(ttft), ttft[-1], new / (wall - ttft[-1] / 1e3)
+
+
+def first_diff(got, ref):
+    """(request, position) of the first token where two runs differ."""
+    for i, (a, b) in enumerate(zip(got, ref)):
+        for j, (x, y) in enumerate(zip(a, b)):
+            if x != y:
+                return i, j
+        if len(a) != len(b):
+            return i, min(len(a), len(b))
+    return None
+
+
+def gate_same(what, got, ref, prompts=None, params=None, cfg=None):
+    """Fail unless two runs' tokens are identical; on a difference, the
+    target's top-2 logit gap at the first differing token (from the
+    forward on that context) says whether it was a near-tie."""
+    import torch
+
+    from ray_tpu_torch.models import llama
+
+    where = first_diff(got, ref)
+    phase("paged", f"{what}: {'ok' if where is None else 'MISMATCH'}")
+    if where is None:
+        return
+    i, j = where
+    msg = (f"{what}: request {i} differs at token {j}: "
+           f"{got[i][j:j + 4]} vs {ref[i][j:j + 4]}")
+    if prompts is not None:
+        ctx = torch.tensor([prompts[i] + ref[i][:j]],
+                           device=params["embed_tokens"].device)
+        top = llama.forward(params, ctx, cfg)[0, -1].float().topk(2)
+        msg += (f"; forward top-2 {top.indices.tolist()} logit gap "
+                f"{(top.values[0] - top.values[1]).item():.3e}")
+    fail(msg)
+
+
+def chunk_io(torch, server, name):
+    """Time the paged plane's per-chunk data movement at the main path's
+    widest table: the gather of 8 slots x 16 blocks of K and V into the
+    compute layout and their scatter back (with the dequantize and
+    requantize of a quantized pool).  The bound counts the pool blocks
+    read once and written once."""
+    g = torch.Generator().manual_seed(29)
+    bt = torch.randint(1, server.num_blocks, (8, 16), generator=g).to(
+        server.device)
+
+    def chunk():
+        for kv in ("k", "v"):
+            server._scatter(kv, bt, server._gather(kv, bt, trash_row=True))
+
+    ms = time_ms(chunk, reps=10, rounds=5)
+    per_block = server.pool_bytes // server.num_blocks
+    nbytes = 2 * bt.numel() * per_block
+    phase("paged", f"{name} gather + scatter of one chunk's K and V (8 x 16 "
+          f"blocks): {ms:.4f} ms, bound {nbytes / PEAK_HBM_BYTES_S * 1e3:.4f}"
+          f" ms (bytes: {nbytes} B read and written once)")
+
+
+def shared_prefix_ttft(torch, server):
+    """TTFT of 8 requests sharing a 128-token prefix, cold (one wave, so
+    nothing is published before its prefills) and warm (a second wave
+    that reuses the prefix's 8 blocks): once with suffixes of 8-22 tokens
+    (one prefill bucket, cold or warm) and once with 16-72 (the warm wave
+    spreads over three buckets, so three prefill calls)."""
+    g = torch.Generator().manual_seed(17)
+    for lo, step in ((8, 2), (16, 8)):
+        prefix = torch.randint(1, 32000, (128,), generator=g).tolist()
+        waves = [[prefix + torch.randint(1, 32000, (lo + step * i,),
+                                         generator=g).tolist()
+                  for i in range(8)] for _ in range(2)]
+        hits0 = server.kv_stats()["ray_tpu_prefix_cache_hits"].get("llm", 0)
+        (cm, cx, _), (wm, wx, _) = [
+            serve_numbers(*run_requests(server, w, 8)) for w in waves]
+        hits = server.kv_stats()["ray_tpu_prefix_cache_hits"]["llm"] - hits0
+        phase("paged", f"bf16 shared 128-token prefix + {lo}-"
+              f"{lo + 7 * step} token suffixes, 8 requests x 8 tokens: TTFT "
+              f"median/max cold {cm:.1f}/{cx:.1f} ms, warm {wm:.1f}/{wx:.1f}"
+              f" ms; prefix hits {hits}")
+        if hits < 8:
+            fail(f"the warm wave hit the prefix cache {hits} times")
+
+
+def paged_phase(torch, llama, fa, LLMServer, prompts, profile_dir):
+    """6b. The paged serving plane at llama_440m, full width and depth:
+    bf16 planes with their numbers, then the token-identity, prefix,
+    quantization and pool-pressure gates."""
+    from ray_tpu_torch.exceptions import BackPressureError
+    from ray_tpu_torch.serve.kv_cache import blocks_for_bytes
+
+    cfg = llama.LlamaConfig.llama_440m()
+    p32 = llama.init_params(cfg, seed=0)
+    dev = p32["embed_tokens"].device
+    p16 = {k: ({kk: vv.to(cfg.dtype) for kk, vv in v.items()}
+               if isinstance(v, dict) else v.to(cfg.dtype))
+           for k, v in p32.items()}
+    base = dict(model_preset="llama_440m", max_slots=8, max_len=512,
+                paged=True, block_size=16)
+    n_blocks = 1 + 8 * (512 // 16)  # the default: dense capacity
+    # The pool reckoned from the config: K and V, every layer, bf16
+    # values, or 8-bit values plus one f32 scale per row.
+    rows = 2 * cfg.n_layers * 16 * cfg.n_kv_heads
+    want_bytes = {None: n_blocks * rows * cfg.head_dim * 2,
+                  "int8": n_blocks * rows * (cfg.head_dim + 4),
+                  "fp8": n_blocks * rows * (cfg.head_dim + 4)}
+    int8_blocks = blocks_for_bytes(want_bytes[None], cfg.n_layers, 16,
+                                   cfg.n_kv_heads, cfg.head_dim,
+                                   kv_quant="int8")
+    phase("paged", f"reckoned pools of {n_blocks} blocks: bf16 "
+          f"{want_bytes[None]} B, int8/fp8 {want_bytes['int8']} B "
+          f"({want_bytes['int8'] / want_bytes[None]:.4f}x); the bf16 "
+          f"budget buys {int8_blocks} int8 blocks")
+    if int8_blocks != want_bytes[None] // (rows * (cfg.head_dim + 4)):
+        fail("blocks_for_bytes disagrees with the reckoning")
+
+    # bf16 planes, timed (warm-up on, as a server runs), with a dense
+    # engine beside them: SERVE_ROUNDS rounds in turns (the order reversed
+    # every other round), each round on fresh prompts of the same lengths
+    # so that every plane prefills cold.
+    planes = {"dense": dict(paged=False), "paged": {},
+              "paged+int8": dict(kv_quant="int8"),
+              "paged+fp8": dict(kv_quant="fp8"),
+              "paged+spec": dict(spec_k=4, draft_layers=6)}
+    g = torch.Generator().manual_seed(19)
+    rounds = [prompts] + [[torch.randint(1, 32000, (len(q),),
+                                         generator=g).tolist()
+                           for q in prompts]
+                          for _ in range(SERVE_ROUNDS - 1)]
+    servers, runs, launches = {}, {n: [] for n in planes}, {}
+    spec_tokens = None
+    try:
+        for name, kw in planes.items():
+            servers[name] = LLMServer(params=p16, **{**base, **kw})
+        for r, ps in enumerate(rounds):
+            for name in (list(planes) if r % 2 == 0 else list(planes)[::-1]):
+                fa.reset_launch_counts()
+                outs, wall = run_requests(servers[name], ps, 32)
+                launches[name] = dict(fa.launch_counts)
+                if any(len(o["tokens"]) != 32 for o in outs):
+                    fail(f"{name} returned "
+                         f"{[len(o['tokens']) for o in outs]} tokens")
+                runs[name].append(serve_numbers(outs, wall))
+                if r == 0 and name == "paged+spec":
+                    spec_tokens = [o["tokens"] for o in outs]
+        for name, kw in planes.items():
+            server = servers[name]
+            stats = server.kv_stats()
+            line = (f"llama_440m bf16 {name}, 8 requests x 32 tokens, "
+                    f"{SERVE_ROUNDS} rounds in turns: TTFT median "
+                    + "/".join(f"{x[0]:.1f}" for x in runs[name])
+                    + " ms, max " + "/".join(f"{x[1]:.1f}"
+                                             for x in runs[name])
+                    + " ms, decode " + "/".join(f"{x[2]:.1f}"
+                                               for x in runs[name])
+                    + f" tok/s (medians {statistics.median(x[0] for x in runs[name]):.1f}"
+                    f" ms, {statistics.median(x[2] for x in runs[name]):.1f}"
+                    f" tok/s), launches {launches[name]}")
+            if name != "dense":
+                alloc = stats["allocator"]
+                line += (f", allocator used {alloc['used']} free "
+                         f"{alloc['free']} (prefix blocks "
+                         f"{alloc['prefix_blocks']}), pool "
+                         f"{stats['pool_bytes']} B")
+            if "spec" in stats:
+                sp = stats["spec"]
+                line += (f", spec proposed {sp['proposed']} accepted "
+                         f"{sp['accepted']} accept rate {sp['accept_rate']}")
+            phase("paged", line)
+            if name != "dense" and \
+                    stats["pool_bytes"] != want_bytes[kw.get("kv_quant")]:
+                fail(f"{name} pool holds {stats['pool_bytes']} B, reckoned "
+                     f"{want_bytes[kw.get('kv_quant')]}")
+            if name != "dense" and "spec_k" not in kw:
+                chunk_io(torch, server, name)
+            if name == "paged":
+                shared_prefix_ttft(torch, server)
+            if profile_dir and name in ("paged", "paged+spec"):
+                profile_run(lambda: run_requests(server, prompts, 32),
+                            f"serve_{name.replace('+', '_')}", profile_dir)
+    finally:
+        for server in servers.values():
+            server.shutdown()
+    del servers
+    torch.cuda.empty_cache()
+
+    # bf16 spec identity: opposite accept regimes, the same tokens.
+    server = LLMServer(params=p16, **base, spec_k=4,
+                       draft_preset="llama_125m")
+    try:
+        outs, _ = run_requests(server, prompts, 32)
+        sp = server.kv_stats()["spec"]
+    finally:
+        server.shutdown()
+    phase("paged", f"bf16 paged+spec with an independent llama_125m draft: "
+          f"accept rate {sp['accept_rate']} ({sp['accepted']} of "
+          f"{sp['proposed']})")
+    gate_same("bf16 spec, self-draft == llama_125m draft",
+              [o["tokens"] for o in outs], spec_tokens, prompts, p16, cfg)
+
+    # f32 gates (the engines' numerics need no warm-up).
+    f32 = dict(base, model_preset="llama_440m_f32", warmup=False)
+    f32_cfg = llama.LlamaConfig.llama_440m_f32(attention_impl="dot")
+    g = torch.Generator().manual_seed(23)
+    p14 = torch.randint(1, 32000, (14 * 16,), generator=g).tolist()
+    pair = torch.randint(1, 32000, (13 * 16 + 5,), generator=g).tolist()
+    prefix = torch.randint(1, 32000, (128,), generator=g).tolist()
+    wave = [prefix + torch.randint(1, 32000, (10 + 7 * i,),
+                                   generator=g).tolist() for i in range(8)]
+
+    def tokens(server, ps, n=8):
+        outs, _ = run_requests(server, ps, n)
+        if any(len(o["tokens"]) != n for o in outs):
+            fail(f"returned {[len(o['tokens']) for o in outs]} tokens")
+        return [o["tokens"] for o in outs]
+
+    server = LLMServer(params=p32, **dict(f32, paged=False))
+    try:
+        dense = tokens(server, prompts)
+        dense_p14, dense_pair = tokens(server, [p14, pair])
+        dense_wave = tokens(server, wave)
+    finally:
+        server.shutdown()
+    server = LLMServer(params=p32, **f32)
+    try:
+        gate_same("f32 paged == dense", tokens(server, prompts), dense,
+                  prompts, p32, f32_cfg)
+        unpressured = tokens(server, prompts, 32)
+        cold = tokens(server, [p14])
+        hits0 = server.kv_stats()["ray_tpu_prefix_cache_hits"]["llm"]
+        warm = tokens(server, [p14])
+        hits = server.kv_stats()["ray_tpu_prefix_cache_hits"]["llm"] - hits0
+        phase("paged", f"f32 14-block prompt: prefix hits on the warm run "
+              f"{hits}")
+        gate_same("f32 14-block prompt cold == dense", cold, [dense_p14])
+        gate_same("f32 14-block prompt warm == cold", warm, cold)
+        if hits < 1:
+            fail("the warm run never hit the prefix cache")
+        gate_same("f32 same-wave pair == dense", tokens(server, [pair, pair]),
+                  [dense_pair, dense_pair])
+        tokens(server, wave[:1])  # publishes the shared prefix
+        gate_same("f32 warm wave of 8 on a shared 128-token prefix == dense",
+                  tokens(server, wave), dense_wave)
+    finally:
+        server.shutdown()
+    for what, kw in (("self-draft (6 layers)", dict(draft_layers=6)),
+                     ("independent llama_125m draft",
+                      dict(draft_preset="llama_125m"))):
+        server = LLMServer(params=p32, **f32, spec_k=4, **kw)
+        try:
+            got = tokens(server, prompts)
+            sp = server.kv_stats()["spec"]
+        finally:
+            server.shutdown()
+        phase("paged", f"f32 paged+spec {what}: accept rate "
+              f"{sp['accept_rate']}")
+        gate_same(f"f32 paged+spec {what} == dense", got, dense, prompts,
+                  p32, f32_cfg)
+
+    # Pool pressure: 22 usable blocks, ~1.5 of the largest request's 15
+    # (200 + 32 positions); the first four admitted grow past the pool
+    # within two chunks.
+    server = LLMServer(params=p32, **dict(f32, num_blocks=23))
+    try:
+        got = tokens(server, prompts, 32)
+        alloc = server.kv_stats()["allocator"]
+        try:
+            run_requests(server, [prompts[-1]], 400)
+            shed = None
+        except BackPressureError as e:
+            shed = e
+        after = server.kv_stats()["allocator"]
+    finally:
+        server.shutdown()
+    phase("paged", f"f32 pool pressure (22 usable blocks): preempted "
+          f"{alloc['preempted']}, allocator used {alloc['used']} = prefix "
+          f"blocks {alloc['prefix_blocks']}; a request needing 32 blocks: "
+          f"{type(shed).__name__}")
+    gate_same("f32 pressured == unpressured", got, unpressured)
+    if alloc["preempted"] < 1:
+        fail("the pressured pool preempted nothing")
+    if alloc["used"] != alloc["prefix_blocks"] or \
+            after["used"] != after["prefix_blocks"]:
+        fail(f"allocator did not return to the trie's count: {alloc} "
+             f"{after}")
+    if shed is None:
+        fail("an impossible request was not shed with BackPressureError")
+
+    # KV quantization on real rope'd K rows of the llama_440m prefill: the
+    # 24 layers' rows as blocks of one layer and 256 positions.
+    toks = torch.randint(1, 32000, (1, 256), generator=g).to(dev)
+    _, ks, _ = llama.prefill_forward(p16, toks,
+                                     torch.tensor([256], device=dev), cfg)
+    rows16 = ks.reshape(cfg.n_layers, 1, 256, cfg.n_kv_heads, cfg.head_dim)
+    rows32 = rows16.float()
+    # Per-row bounds: half a grid step of the row, int8 0.5/127 of its
+    # amax, e4m3 half an ulp at the 448 binade (16/448 = 1/28); the 1e-6
+    # is the f32 rounding of the scale and the quotient.
+    for name, qmax, qdt, row_tol in (
+            ("int8", 127.0, torch.int8, 0.5 / 127 + 1e-6),
+            ("fp8", 448.0, torch.float8_e4m3fn, 1 / 28 + 1e-6)):
+        q, s = llama.quantize_kv_blocks(rows32, qmax, qdt)
+        y = llama.dequantize_kv_blocks(q, s, torch.float32)
+        amax = rows32.abs().amax(-1, keepdim=True)
+        per_row = ((y - rows32).abs() / (amax + 1e-9)).max().item()
+        overall = ((y - rows32).abs().max() / rows32.abs().max()).item()
+        q2, s2 = llama.quantize_kv_blocks(y, qmax, qdt)
+        fixed32 = torch.equal(q2.view(torch.uint8), q.view(torch.uint8)) \
+            and torch.equal(s2, s)
+        qb, sb = llama.quantize_kv_blocks(rows16, qmax, qdt)
+        qb2, sb2 = llama.quantize_kv_blocks(
+            llama.dequantize_kv_blocks(qb, sb, cfg.dtype), qmax, qdt)
+        fixed16 = torch.equal(qb2.view(torch.uint8), qb.view(torch.uint8)) \
+            and torch.equal(sb2, sb)
+        qc, sc = llama.quantize_kv_blocks(rows32.cpu(), qmax, qdt)
+        same_cpu = torch.equal(qc.view(torch.uint8),
+                               q.view(torch.uint8).cpu()) and \
+            torch.equal(sc, s.cpu())
+        ok = (per_row <= row_tol and fixed32 and fixed16 and same_cpu
+              and (name != "int8" or overall <= 1 / 127))
+        phase("paged", f"{name} on llama_440m K rows {tuple(rows32.shape)}: "
+              f"per-row max |d|/amax {per_row:.6e} (tol {row_tol:.6e}), "
+              f"overall {overall:.3e}"
+              + (" (tol 7.874e-03)" if name == "int8" else "")
+              + f", fixed point f32 {fixed32} bf16 {fixed16}, card bytes "
+              f"== cpu bytes {same_cpu}: {'ok' if ok else 'MISMATCH'}")
+        if not ok:
+            fail(f"{name} KV quantization outside its bounds")
+    del p16, p32, ks, rows16, rows32
+    torch.cuda.empty_cache()
 
 
 def profile_run(fn, label: str, out_dir: str) -> None:
@@ -568,6 +922,9 @@ def main() -> None:
 
     del server, params, outs
     torch.cuda.empty_cache()
+
+    # 6b. The paged serving plane.
+    paged_phase(torch, llama, fa, LLMServer, prompts, profile_dir)
 
     # 7. Backward kernels vs their plain version.
     # (B, Hq, Hkv, Sq, Sk, D).  The first case is the train path's shape

@@ -1,5 +1,6 @@
 """Llama-family decoder LM in PyTorch (counterpart of
-``ray_tpu/models/llama.py``): forward, loss, train step, KV-cache decode.
+``ray_tpu/models/llama.py``): forward, loss, train step, KV-cache decode
+(the slot cache and the paged block pool with its int8/fp8 quantizers).
 
 - Params are a nested dict of tensors under the JAX package's keys, with
   every per-layer weight stacked on a leading ``(L, ...)`` axis, so
@@ -31,6 +32,7 @@ from torch.profiler import record_function
 from torch.utils.checkpoint import checkpoint
 
 from ..core.device import DeviceLike, check_on, resolve_device, to_device
+from ..serve.kv_cache import kv_quant_info
 from ..train.optim import (ClipAdamW, apply_updates, fused_adamw_init,
                            fused_adamw_update, fused_hyperparams,
                            global_norm, tree_leaves, tree_unflatten)
@@ -666,6 +668,68 @@ def init_kv_cache(config: LlamaConfig, batch: int, max_len: int,
     dt = dtype or c.dtype
     return {"k": torch.zeros(shape, dtype=dt, device=dev),
             "v": torch.zeros(shape, dtype=dt, device=dev)}
+
+
+def init_paged_kv_cache(config: LlamaConfig, num_blocks: int,
+                        block_size: int, dtype: Optional[torch.dtype] = None,
+                        kv_quant: Optional[str] = None,
+                        device: DeviceLike = None) -> Dict[str, torch.Tensor]:
+    """Block-pool KV cache for paged attention: ``(num_blocks, L,
+    block_size, Hkv, D)`` per tensor, BLOCK-major (one block's K or V
+    across all layers is one contiguous slab).  Block 0 is the null
+    block: block-table padding names it, so padding gathers read it
+    (masked by attention) and padding scatters write it (never read
+    unmasked).  Zero-filled: masked keys are harmless only while every
+    byte of the pool is finite (0 x NaN = NaN).
+
+    ``kv_quant`` ("int8"/"fp8", ``serve/kv_cache.KV_QUANT_FORMATS``)
+    stores reduced-precision values with one f32 scale per KV ROW —
+    ``k_scale``/``v_scale`` shaped ``(num_blocks, L, block_size,
+    Hkv)``; the engine dequantizes on gather and requantizes on scatter
+    (:func:`quantize_kv_blocks` / :func:`dequantize_kv_blocks`)."""
+    c = config
+    dev = resolve_device(device)
+    shape = (num_blocks, c.n_layers, block_size, c.n_kv_heads, c.head_dim)
+    if kv_quant is None:
+        dt = dtype or c.dtype
+        return {"k": torch.zeros(shape, dtype=dt, device=dev),
+                "v": torch.zeros(shape, dtype=dt, device=dev)}
+    fmt = kv_quant_info(kv_quant)
+    sshape = shape[:-1]
+    return {"k": torch.zeros(shape, dtype=fmt.dtype, device=dev),
+            "v": torch.zeros(shape, dtype=fmt.dtype, device=dev),
+            "k_scale": torch.zeros(sshape, dtype=torch.float32, device=dev),
+            "v_scale": torch.zeros(sshape, dtype=torch.float32, device=dev)}
+
+
+def quantize_kv_blocks(x: torch.Tensor, qmax: float, qdtype: torch.dtype
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-(block, layer, position, head) symmetric quantization of KV
+    block updates.  x: (N, L, bs, Hkv, D); returns (stored (N, L, bs,
+    Hkv, D) in ``qdtype``, scale (N, L, bs, Hkv) f32) with ``stored *
+    scale ~ x``: the reference's bytes (``torch.round`` rounds half to
+    even, as ``jnp.round`` does).  The row's amax maps exactly onto
+    ``+-qmax`` (so fp8 never overflows), which makes dequantize then
+    requantize a FIXED POINT: the decode loop re-scatters every gathered
+    block each chunk, shared COW prefix blocks included, and without
+    that they would drift a little every chunk."""
+    xf = x.float()
+    amax = xf.abs().amax(dim=4)
+    # Divide by a tensor on x's device: on the card, a Python-scalar
+    # divisor becomes a multiply by its reciprocal, which is not the
+    # reference's (or the CPU's) quotient and breaks the fixed point.
+    scale = amax.clamp_min(1e-30) / amax.new_full((), qmax)
+    q = xf / scale[..., None]
+    if not qdtype.is_floating_point:
+        q = torch.round(q).clamp(-qmax, qmax)
+    return q.to(qdtype), scale
+
+
+def dequantize_kv_blocks(stored: torch.Tensor, scale: torch.Tensor,
+                         out_dtype: torch.dtype) -> torch.Tensor:
+    """Inverse of :func:`quantize_kv_blocks` (same block layout); the
+    product runs in f32, after the cast."""
+    return (stored.float() * scale[..., None]).to(out_dtype)
 
 
 @torch.no_grad()
