@@ -10,8 +10,9 @@ each against its plain PyTorch version, times it, drives the main path
 through the entry points a user would call, and checks the results:
 
 1. card name and power limit (nvidia-smi);
-2. kernel build (one nvcc per source, all started together), with its
-   time and ptxas register report; it fails if ptxas ignored a kernel's
+2. kernel build (one nvcc per source, all started together: the wgmma
+   forward, the wgmma backward and the simple family), with its time and
+   ptxas register report; it fails if ptxas ignored a kernel's
    setmaxnreg or spilled its registers;
 3. flash forward kernel vs its plain version, bf16, at four shapes;
 4. kernel time vs its bound, the plain version and PyTorch's SDPA
@@ -48,7 +49,24 @@ through the entry points a user would call, and checks the results:
     params and moments): 3 warm-up and 10 timed steps, finite and falling
     loss, 24 launches of each flash kernel per step; then 2 steps of the
     optax-chain counterpart, whose losses must match;
-11. one JSON line per kernel, then the result line.
+11. fault C1's kernels: the f16 instantiations of the three wgmma
+    kernels and the simple CUDA-core family (f32 at the main path's
+    shape (4, 8, 2048, 128), causal and not; bf16 and f32 at D = 256 and
+    at D = 72) against their plain versions, then their times against
+    their bounds (the simple family's at the f32 CUDA-core peak), the
+    plain versions and SDPA;
+12. llama_440m on the flash path in f32 (the simple family) and in f16:
+    the forward at B=4 x S=2048 (f32 against plain attention) and 3
+    train steps each, finite and falling loss, with the launch counts;
+13. ring attention's chunk schedule on one device (``ops/ring_attention.
+    _ring_chunks``): Hq = Hkv = 8, D = 128, S = 8192 in 4 chunks, bf16
+    (16 launches of each wgmma kernel: 4 diagonal, 12 off-diagonal),
+    then f32 at S = 4096 on the simple family; output and gradients
+    against flash attention on the whole sequence;
+14. the llama_440m bf16 train step with its params through
+    ``shard_params`` under ``use_mesh(local_mesh())``: the same losses,
+    bit for bit, as without a mesh;
+15. one JSON line per kernel, then the result line.
 
 ``--profile DIR`` adds a torch.profiler pass over the forward, over one
 more round of requests and over one train step, and writes op tables
@@ -73,9 +91,11 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
-# Published dense peaks of one H100 SXM (NVIDIA data sheet): bf16 tensor
-# cores and HBM3 bandwidth.
+# Published dense peaks of one H100 SXM (NVIDIA data sheet): bf16 (and
+# fp16) tensor cores, f32 outside the tensor cores (the simple kernel
+# family's FMAs; not the tf32 rate), and HBM3 bandwidth.
 PEAK_BF16_FLOPS = 989e12
+PEAK_F32_FLOPS = 67e12
 PEAK_HBM_BYTES_S = 3.35e12
 
 # Tolerances.  Kernel vs plain version on the same bf16 inputs: o is
@@ -115,8 +135,22 @@ TOL_CHAIN_LOSS_REL = 1e-3
 TRAIN_B, TRAIN_S, TRAIN_WARM, TRAIN_TIMED, CHAIN_STEPS = 8, 2048, 3, 10, 2
 # Rounds of the paged phase's bf16 serving planes, run in turns.
 SERVE_ROUNDS = 3
-# What every kernel is built from, for the kernels line.
+# The f32 simple family against the plain version on the same f32
+# inputs: both sum f32 products in another order (and the kernel's
+# softmax online), so each output as a whole, |got - ref|_2 / |ref|_2,
+# agrees to a few f32 ulps of accumulation: o, lse, dq, dk, dv.
+TOL_F32_REL = 1e-5
+# llama_440m in f32 on the simple family against the same forward on
+# plain attention: 24 layers of f32 sums in another order.
+TOL_F32_MODEL_REL = 1e-4
+# Ring attention against flash attention on the whole sequence, each
+# output and gradient as a whole: bf16 (the merges round o to bf16 at
+# each of n steps where one flash call rounds once) and f32.
+TOL_RING_BF16_REL = 1e-2
+TOL_RING_F32_REL = 1e-5
+# What the kernels are built from, for the kernels line.
 DESIGN = "wgmma+tma, warp-specialised"
+DESIGN_SIMPLE = "cuda-core f32 fma, shared-memory tiles"
 
 
 def fail(msg: str) -> None:
@@ -149,10 +183,10 @@ def time_ms(fn, reps: int = 20, rounds: int = 5) -> float:
     return statistics.median(out)
 
 
-def bound(flops, nbytes):
-    """The least time (ms) the card could take for this work, and which
-    of its peaks bounds it."""
-    t_ops = flops / PEAK_BF16_FLOPS * 1e3
+def bound(flops, nbytes, peak=PEAK_BF16_FLOPS):
+    """The least time (ms) the card could take for this work at
+    ``peak`` FLOP/s, and which of its peaks bounds it."""
+    t_ops = flops / peak * 1e3
     t_bytes = nbytes / PEAK_HBM_BYTES_S * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
                                  else "bytes")
@@ -163,53 +197,59 @@ def visible_pairs(Sq, Sk, causal):
     return sum(min(i + 1, Sk) for i in range(Sq)) if causal else Sq * Sk
 
 
-def attention_cost(B, Hq, Sq, Sk, D, causal):
-    """FLOP and bytes one flash forward call needs at these shapes, and
-    its bound in ms."""
+def attention_cost(B, Hq, Sq, Sk, D, causal, elem=2,
+                   peak=PEAK_BF16_FLOPS):
+    """FLOP and bytes one flash forward call needs at these shapes
+    (``elem`` bytes an element), and its bound in ms at ``peak``."""
     flops = 4.0 * B * Hq * D * visible_pairs(Sq, Sk, causal)  # QK^T, PV
     # q, k, v read once (k/v at Hq heads here: MHA shapes), o and lse
     # written once.
-    nbytes = 2.0 * B * Hq * D * (Sq + 2 * Sk + Sq) + 4.0 * B * Hq * Sq
-    return (flops, nbytes) + bound(flops, nbytes)
+    nbytes = elem * B * Hq * D * (Sq + 2 * Sk + Sq) + 4.0 * B * Hq * Sq
+    return (flops, nbytes) + bound(flops, nbytes, peak)
 
 
-def attention_bwd_cost(B, H, Sq, Sk, D, causal):
+def attention_bwd_cost(B, H, Sq, Sk, D, causal, elem=2,
+                       peak=PEAK_BF16_FLOPS, suffix=""):
     """FLOP and bytes of the dq kernel (with its delta pre-pass) and of
-    the dk/dv kernel at these shapes (k/v at q's heads).  Returns
-    {name: (flops, bytes, ms, bound_by)}."""
+    the dk/dv kernel at these shapes (k/v at q's heads; ``elem`` bytes an
+    element), bound at ``peak``.  Returns {name + suffix: (flops, bytes,
+    ms, bound_by)}."""
     pairs = visible_pairs(Sq, Sk, causal)
     out = {}
     # dq: S = QK^T, dP = dO V^T, dQ = dS K; delta = rowsum(dO * O).
-    # Reads q, o, do (Sq rows) and k, v (Sk rows) in bf16 and lse; writes
-    # delta and dq in f32.
+    # Reads q, o, do (Sq rows) and k, v (Sk rows) and lse; writes delta
+    # and dq in f32.
     flops = 6.0 * B * H * D * pairs + 2.0 * B * H * Sq * D
-    nbytes = (2.0 * B * H * D * (3 * Sq + 2 * Sk) + 4.0 * B * H * Sq * 2
+    nbytes = (elem * B * H * D * (3 * Sq + 2 * Sk) + 4.0 * B * H * Sq * 2
               + 4.0 * B * H * Sq * D)
-    out["flash_bwd_dq"] = (flops, nbytes) + bound(flops, nbytes)
-    # dk/dv: S^T, dP^T, dV = P^T dO, dK = dS^T Q.  Reads q, do, k, v in
-    # bf16 and lse, delta; writes dk, dv in f32.
+    out["flash_bwd_dq" + suffix] = (flops, nbytes) + bound(flops, nbytes,
+                                                           peak)
+    # dk/dv: S^T, dP^T, dV = P^T dO, dK = dS^T Q.  Reads q, do, k, v and
+    # lse, delta; writes dk, dv in f32.
     flops = 8.0 * B * H * D * pairs
-    nbytes = (2.0 * B * H * D * (2 * Sq + 2 * Sk) + 4.0 * B * H * Sq * 2
+    nbytes = (elem * B * H * D * (2 * Sq + 2 * Sk) + 4.0 * B * H * Sq * 2
               + 8.0 * B * H * Sk * D)
-    out["flash_bwd_dkdv"] = (flops, nbytes) + bound(flops, nbytes)
+    out["flash_bwd_dkdv" + suffix] = (flops, nbytes) + bound(flops, nbytes,
+                                                             peak)
     return out
 
 
-def attention_inputs(torch, shape, seed, layout, scaled=True):
-    """q (scaled by D**-0.5 unless ``scaled`` is False), k, v in bf16 on
-    the card as (B, H, S, D) tensors: contiguous (``"bhsd"``) or views of
-    (B, S, H, D) tensors (``"bshd"``, the layout the model hands the
-    kernel)."""
+def attention_inputs(torch, shape, seed, layout, scaled=True, dtype=None):
+    """q (scaled by D**-0.5 unless ``scaled`` is False), k, v in
+    ``dtype`` (bf16 unless given) on the card as (B, H, S, D) tensors:
+    contiguous (``"bhsd"``) or views of (B, S, H, D) tensors (``"bshd"``,
+    the layout the model hands the kernel)."""
     B, Hq, Hkv, Sq, Sk, D = shape
+    dtype = dtype or torch.bfloat16
     g = torch.Generator(device="cuda")
     g.manual_seed(seed)
 
     def randn(b, h, s, d):
         if layout == "bhsd":
             return torch.randn(b, h, s, d, generator=g, device="cuda"
-                               ).to(torch.bfloat16)
+                               ).to(dtype)
         return torch.randn(b, s, h, d, generator=g, device="cuda"
-                           ).to(torch.bfloat16).transpose(1, 2)
+                           ).to(dtype).transpose(1, 2)
 
     q = randn(B, Hq, Sq, D)
     return (q * D ** -0.5 if scaled else q, randn(B, Hkv, Sk, D),
@@ -461,7 +501,7 @@ def paged_phase(torch, llama, fa, LLMServer, prompts, profile_dir):
             for name in (list(planes) if r % 2 == 0 else list(planes)[::-1]):
                 fa.reset_launch_counts()
                 outs, wall = run_requests(servers[name], ps, 32)
-                launches[name] = dict(fa.launch_counts)
+                launches[name] = launched(fa)
                 if any(len(o["tokens"]) != 32 for o in outs):
                     fail(f"{name} returned "
                          f"{[len(o['tokens']) for o in outs]} tokens")
@@ -525,7 +565,7 @@ def paged_phase(torch, llama, fa, LLMServer, prompts, profile_dir):
 
     # f32 gates (the engines' numerics need no warm-up).
     f32 = dict(base, model_preset="llama_440m_f32", warmup=False)
-    f32_cfg = llama.LlamaConfig.llama_440m_f32(attention_impl="dot")
+    f32_cfg = llama.LlamaConfig.llama_440m_f32()  # flash: the simple family
     g = torch.Generator().manual_seed(23)
     p14 = torch.randint(1, 32000, (14 * 16,), generator=g).tolist()
     pair = torch.randint(1, 32000, (13 * 16 + 5,), generator=g).tolist()
@@ -701,6 +741,339 @@ def profile_run(fn, label: str, out_dir: str) -> None:
               for e in top) + f" (tables in {path})")
 
 
+def launched(fa):
+    """The kernels launched since the counts were last set to 0, with
+    their counts."""
+    return {n: c for n, c in fa.launch_counts.items() if c}
+
+
+def rel_err(got, ref):
+    """|got - ref|_2 / |ref|_2 in f32."""
+    d = got.float() - ref.float()
+    return (d.norm() / ref.float().norm().clamp_min(1e-30)).item()
+
+
+def check_variant(fa, torch, dtype, shape, causal, seed):
+    """One kernel family at ``dtype`` against the plain versions on the
+    same inputs, forward and backward (k/v expanded to q's heads for the
+    backward), on (B, H, S, D) views of (B, S, H, D) tensors.  Returns
+    (family, {name: error}, ok, {name: max |d|}): the error of the
+    16-bit forward by max |do| and |dlse|, everything else (and all of
+    f32) by |d|_2 / |ref|_2."""
+    B, Hq, Hkv, Sq, Sk, D = shape
+    family = fa.kernel_family(dtype, D)
+    suffix = "_simple" if family == "simple" else (
+        "_f16" if dtype == torch.float16 else "")
+    q, k, v = attention_inputs(torch, shape, seed, "bshd", dtype=dtype)
+    do = attention_inputs(torch, shape, seed + 100, "bshd", scaled=False,
+                          dtype=dtype)[0]
+    fa.reset_launch_counts()
+    o, lse = fa._fwd(q, k, v, causal)
+    ro, rl = fa._fwd_reference(q, k, v, causal)
+    kf, vf = (t.repeat_interleave(Hq // Hkv, dim=1) for t in (k, v))
+    got = fa._bwd_impl(q, kf, vf, o, lse, do, causal)
+    ref = fa._bwd_reference(q, kf, vf, o, lse, do, causal)
+    torch.cuda.synchronize()
+    counts = launched(fa)
+    want = {"flash_fwd" + suffix: 1, "flash_bwd_dq" + suffix: 1,
+            "flash_bwd_dkdv" + suffix: 1}
+    if counts != want:
+        fail(f"{dtype} D={D} launched {counts}, expected {want}")
+    f32 = dtype == torch.float32
+    errs = {}
+    abs_errs = {"o": (o.float() - ro.float()).abs().max().item()}
+    if f32:
+        errs["o"], errs["lse"] = rel_err(o, ro), rel_err(lse, rl)
+    else:
+        errs["o"] = (o.float() - ro.float()).abs().max().item()
+        errs["lse"] = (lse - rl).abs().max().item()
+    for name, g, r in zip(("dq", "dk", "dv"), got, ref):
+        if not torch.isfinite(g).all():
+            fail(f"{dtype} D={D} {name} not finite")
+        errs[name] = rel_err(g, r.to(g.dtype))
+        abs_errs[name] = (g.float() - r.float()).abs().max().item()
+    if f32:
+        ok = all(e <= TOL_F32_REL for e in errs.values())
+    else:
+        ok = (errs["o"] <= TOL_O and errs["lse"] <= TOL_LSE
+              and all(errs[n] <= TOL_GRAD_REL for n in ("dq", "dk", "dv")))
+    return family, errs, ok, abs_errs
+
+
+def c1_kernel_phase(fa, torch, sdpa):
+    """Fault C1's kernels: the f16 wgmma instantiations and the simple
+    family (f32 at the main path's shape; bf16 and f32 at D = 256 and at
+    D = 72) against their plain versions, then their times at the main
+    path's shape.  Returns {kernel name: its kernels-line numbers}."""
+    shape = (4, 8, 8, 2048, 2048, 128)
+    cases = [(torch.float16, shape, True), (torch.float16, shape, False),
+             (torch.float32, shape, True), (torch.float32, shape, False),
+             (torch.float32, (2, 8, 8, 1024, 1024, 256), True),
+             (torch.bfloat16, (2, 8, 8, 1024, 1024, 256), True),
+             (torch.float32, (2, 8, 4, 1000, 1500, 72), False),
+             (torch.bfloat16, (2, 8, 4, 1000, 1500, 72), True)]
+    worst = {}
+    for i, (dtype, shp, causal) in enumerate(cases):
+        family, errs, ok, abs_errs = check_variant(fa, torch, dtype, shp,
+                                                   causal, seed=40 + i)
+        f32 = dtype == torch.float32
+        tol = (f"|d|/|ref| <= {TOL_F32_REL}" if f32 else
+               f"max|do| <= {TOL_O}, max|dlse| <= {TOL_LSE}, grads "
+               f"|d|/|ref| <= {TOL_GRAD_REL}")
+        phase("c1", f"{family} {str(dtype)[6:]} {shp} causal={causal}: "
+              + " ".join(f"{n}={e:.3e}" for n, e in errs.items())
+              + f" ({tol}) " + ("ok" if ok else "MISMATCH"))
+        if not ok:
+            fail(f"{family} kernels disagree with their plain version at "
+                 f"{dtype} {shp}")
+        suffix = "_f16" if dtype == torch.float16 else "_simple"
+        if shp == shape:  # the main path's shape: the kernels line's error
+            for kname, errs_of in (("flash_fwd", ("o",)),
+                                   ("flash_bwd_dq", ("dq",)),
+                                   ("flash_bwd_dkdv", ("dk", "dv"))):
+                worst[kname + suffix] = max(
+                    [worst.get(kname + suffix, 0.0)]
+                    + [abs_errs[e] for e in errs_of])
+        torch.cuda.empty_cache()
+
+    out = {}
+    B, H, S, D = 4, 8, 2048, 128
+    for dtype, suffix in ((torch.float16, "_f16"),
+                          (torch.float32, "_simple")):
+        f32 = dtype == torch.float32
+        elem, peak = (4, PEAK_F32_FLOPS) if f32 else (2, PEAK_BF16_FLOPS)
+        reps = dict(reps=3, rounds=3) if f32 else {}
+        q, k, v = attention_inputs(torch, (B, H, H, S, S, D), 50, "bshd",
+                                   dtype=dtype)
+        do = attention_inputs(torch, (B, H, H, S, S, D), 51, "bshd",
+                              scaled=False, dtype=dtype)[0]
+        ms = time_ms(lambda: fa._fwd(q, k, v, True), **reps)
+        plain_ms = time_ms(lambda: fa._fwd_reference(q, k, v, True),
+                           reps=3, rounds=3)
+        library_ms = time_ms(lambda: sdpa(q, k, v, is_causal=True,
+                                          scale=1.0), **reps)
+        flops, nbytes, b_ms, b_by = attention_cost(B, H, S, S, D, True,
+                                                   elem, peak)
+        phase("c1", f"flash_fwd{suffix} ({B},{H},{S},{D}) causal "
+              f"{str(dtype)[6:]}: {ms:.4f} ms ({flops / ms / 1e9:.1f} "
+              f"TFLOP/s), bound {b_ms:.4f} ms ({b_by} at "
+              f"{peak / 1e12:.0f} TFLOP/s; {100 * b_ms / ms:.1f}% of it), "
+              f"plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} ms")
+        out["flash_fwd" + suffix] = dict(
+            ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+            library_ms=library_ms, max_abs_err=worst["flash_fwd" + suffix])
+        o, lse = fa._fwd(q, k, v, True)
+        args = fa._BwdArgs(q, k, v, o, lse, do, True)
+        _, delta = fa._bwd_dq(args)
+        bwd = {"flash_bwd_dq" + suffix: time_ms(lambda: fa._bwd_dq(args),
+                                               **reps),
+               "flash_bwd_dkdv" + suffix: time_ms(
+                   lambda: fa._bwd_dkdv(args, delta), **reps)}
+        plain_bwd = time_ms(lambda: fa._bwd_reference(q, k, v, o, lse, do,
+                                                      True),
+                            reps=2, rounds=3)
+        qq, kk, vv = (t.detach().requires_grad_() for t in (q, k, v))
+        sd = sdpa(qq, kk, vv, is_causal=True, scale=1.0)
+        lib_bwd = time_ms(lambda: torch.autograd.grad(
+            sd, (qq, kk, vv), do, retain_graph=True), **reps)
+        for name, (flops, nbytes, b_ms, b_by) in attention_bwd_cost(
+                B, H, S, S, D, True, elem, peak, suffix).items():
+            phase("c1", f"{name} ({B},{H},{S},{D}) causal "
+                  f"{str(dtype)[6:]}: {bwd[name]:.4f} ms "
+                  f"({flops / bwd[name] / 1e9:.1f} TFLOP/s), bound "
+                  f"{b_ms:.4f} ms ({b_by}; {100 * b_ms / bwd[name]:.1f}% "
+                  f"of it), plain backward {plain_bwd:.4f} ms, sdpa "
+                  f"backward {lib_bwd:.4f} ms")
+            out[name] = dict(ms=bwd[name], plain_ms=plain_bwd,
+                             bound_ms=b_ms, bound_by=b_by,
+                             library_ms=lib_bwd, max_abs_err=worst[name])
+        del q, k, v, do, o, lse, args, delta, qq, kk, vv, sd
+        torch.cuda.empty_cache()
+    return out
+
+
+def c1_model_phase(fa, torch, llama):
+    """llama_440m on the flash path in f32 (the simple family) and in
+    f16 (the f16 wgmma kernels), where before fault C1 was closed only
+    attention_impl="dot" ran: the forward at B=4 x S=2048, compared in
+    f32 with the same forward on plain attention, then train steps with
+    finite, falling loss.  Each dtype's path runs with the launch counts
+    set to 0 before it; returns {dtype name: its counts}."""
+    out = {}
+    g = torch.Generator(device="cuda")
+    for dtype, steps in ((torch.float32, 3), (torch.float16, 3)):
+        name = str(dtype)[6:]
+        cfg = llama.LlamaConfig.llama_440m(dtype=dtype)
+        g.manual_seed(60)
+        tokens = torch.randint(0, cfg.vocab_size, (4, 2048), generator=g,
+                               device="cuda")
+        fa.reset_launch_counts()
+        params = llama.init_params(cfg, seed=0, dtype=dtype)
+        t0 = time.perf_counter()
+        logits = llama.forward(params, tokens, cfg)
+        torch.cuda.synchronize()
+        fwd_s = time.perf_counter() - t0
+        fwd_counts = launched(fa)
+        if not torch.isfinite(logits).all():
+            fail(f"llama_440m {name} flash logits not finite")
+        line = (f"llama_440m {name} flash B=4 S=2048 forward "
+                f"{fwd_s * 1e3:.1f} ms, launches {fwd_counts}")
+        if dtype == torch.float32:
+            dot = llama.forward(params, tokens, llama.LlamaConfig.llama_440m(
+                dtype=dtype, attention_impl="dot"))
+            err = rel_err(logits, dot)
+            agree = (logits.argmax(-1) == dot.argmax(-1)).float().mean()
+            line += (f"; vs plain attention |d|/|ref| = {err:.3e} (tol "
+                     f"{TOL_F32_MODEL_REL}), argmax agree {agree:.5f}")
+            if err > TOL_F32_MODEL_REL:
+                fail("llama_440m f32 flash forward disagrees with dot")
+            del dot
+        phase("c1", line)
+        del logits, params
+        torch.cuda.empty_cache()
+        state = llama.init_train_state(cfg, seed=0, fused=True)
+        step = llama.make_train_step(cfg, fused=True)
+        g.manual_seed(61)
+        batch = {"tokens": torch.randint(0, cfg.vocab_size, (4, 2048),
+                                         generator=g, device="cuda")}
+        losses = []
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            state, m = step(state, batch)
+            losses.append(m["loss"].item())
+        step_s = (time.perf_counter() - t0) / steps
+        counts = launched(fa)
+        phase("c1", f"llama_440m {name} flash train B=4 S=2048: losses "
+              + " ".join(f"{x:.4f}" for x in losses)
+              + f", {step_s * 1e3:.1f} ms a step (first included), "
+              f"launches over the path {counts}")
+        if not all(math.isfinite(x) for x in losses) or \
+                not losses[-1] < losses[0]:
+            fail(f"llama_440m {name} flash training: losses {losses}")
+        out[name] = counts
+        del state, step, batch
+        torch.cuda.empty_cache()
+    return out
+
+
+def ring_phase(fa, torch, profile_dir=None):
+    """Ring attention's chunk schedule on one device: llama_440m's
+    attention width (Hq = Hkv = 8, D = 128) over S = 8192 in 4 chunks of
+    2048, bf16 on the wgmma kernels, then f32 (S = 4096) on the simple
+    family; the output and the three gradients against flash attention
+    on the whole sequence.  Returns the bf16 run's launch counts."""
+    from ray_tpu_torch.ops import ring_attention as ra
+
+    out = {}
+    for dtype, S, tol in ((torch.bfloat16, 8192, TOL_RING_BF16_REL),
+                          (torch.float32, 4096, TOL_RING_F32_REL)):
+        name = str(dtype)[6:]
+        n, B, H, D = 4, 1, 8, 128
+        g = torch.Generator(device="cuda")
+        g.manual_seed(70)
+        q, k, v, do = (torch.randn(B, S, H, D, generator=g, device="cuda")
+                       .to(dtype) for _ in range(4))
+        ins = [t.detach().requires_grad_() for t in (q, k, v)]
+        ref = fa.flash_attention(*ins, causal=True)
+        ref_g = torch.autograd.grad(ref, ins, do)
+        chunks = [[c.detach().requires_grad_() for c in t.chunk(n, dim=1)]
+                  for t in (q, k, v)]
+        flat = [c for t in chunks for c in t]
+        do_chunks = list(do.chunk(n, dim=1))
+        torch.cuda.synchronize()
+        fa.reset_launch_counts()
+        outs = ra._ring_chunks(*chunks)
+        fwd_counts = launched(fa)
+        got_g = torch.autograd.grad(outs, flat, do_chunks)
+        torch.cuda.synchronize()
+        counts = launched(fa)
+        # Warm times by CUDA events: the ring against one flash call on
+        # the whole sequence, forward and forward + backward.
+        reps = dict(reps=5, rounds=3)
+        with torch.no_grad():
+            ring_fwd = time_ms(lambda: ra._ring_chunks(*chunks), **reps)
+            whole_fwd = time_ms(lambda: fa.flash_attention(
+                q, k, v, causal=True), **reps)
+        ring_all = time_ms(lambda: torch.autograd.grad(
+            ra._ring_chunks(*chunks), flat, do_chunks), **reps)
+        whole_all = time_ms(lambda: torch.autograd.grad(
+            fa.flash_attention(*ins, causal=True), ins, do), **reps)
+        if profile_dir:
+            profile_run(lambda: torch.autograd.grad(
+                ra._ring_chunks(*chunks), flat, do_chunks),
+                f"ring_{name}", profile_dir)
+        errs = {"o": rel_err(torch.cat(outs, dim=1), ref)}
+        for i, gname in enumerate(("dq", "dk", "dv")):
+            errs[gname] = rel_err(torch.cat(got_g[n * i:n * (i + 1)], dim=1),
+                                  ref_g[i])
+        ok = all(e <= tol for e in errs.values())
+        phase("ring", f"{name} ({B},{S},{H},{D}) in {n} chunks of {S // n}: "
+              + " ".join(f"{e}={x:.3e}" for e, x in errs.items())
+              + f" vs flash_attention on the whole sequence (|d|/|ref| <= "
+              f"{tol}) {'ok' if ok else 'MISMATCH'}; ring forward "
+              f"{ring_fwd:.4f} ms, forward + backward {ring_all:.4f} ms; "
+              f"whole-sequence flash {whole_fwd:.4f} / {whole_all:.4f} ms; "
+              f"launches forward {fwd_counts}, forward + backward {counts}")
+        if not ok:
+            fail(f"ring attention ({name}) disagrees with flash attention")
+        per_pass = n * n  # n diagonal + n(n-1) off-diagonal steps
+        suffix = "" if dtype == torch.bfloat16 else "_simple"
+        want = {"flash_fwd" + suffix: per_pass,
+                "flash_bwd_dq" + suffix: per_pass,
+                "flash_bwd_dkdv" + suffix: per_pass}
+        if counts != want:
+            fail(f"ring ({name}) launched {counts}, expected {want}")
+        out[name] = counts
+        del q, k, v, do, ins, ref, ref_g, chunks, outs, got_g
+        torch.cuda.empty_cache()
+    return out
+
+
+def mesh_phase(fa, torch, llama):
+    """The llama_440m bf16 train step (B=8 x S=2048) with its params
+    through shard_params under use_mesh(local_mesh()): the same losses
+    as the same steps without a mesh, bit for bit (the constraints are
+    no-ops on one device).  Returns the mesh run's launch counts."""
+    import torch.distributed as dist
+
+    from ray_tpu_torch.parallel import (local_mesh, shard_params,
+                                        use_mesh)
+
+    cfg = llama.LlamaConfig.llama_440m()
+    g = torch.Generator(device="cuda")
+    g.manual_seed(80)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (TRAIN_B, TRAIN_S),
+                                     generator=g, device="cuda")}
+    losses = {}
+    for name in ("plain", "mesh"):
+        state = llama.init_train_state(cfg, seed=0, fused=True)
+        step = llama.make_train_step(cfg, fused=True)
+        fa.reset_launch_counts()
+        if name == "mesh":
+            mesh = local_mesh()
+            with use_mesh(mesh):
+                state["params"] = shard_params(
+                    state["params"], llama.param_logical_axes(cfg))
+                run = [step(state, batch)[1]["loss"].item()
+                       for _ in range(2)]
+        else:
+            run = [step(state, batch)[1]["loss"].item() for _ in range(2)]
+        losses[name] = run
+        counts = launched(fa)
+        del state, step
+        torch.cuda.empty_cache()
+    same = losses["mesh"] == losses["plain"]
+    phase("mesh", f"llama_440m bf16 B={TRAIN_B} S={TRAIN_S}, 2 fused steps: "
+          f"losses under use_mesh(local_mesh()) {losses['mesh']} vs without "
+          f"{losses['plain']}: {'identical' if same else 'MISMATCH'}; "
+          f"mesh {dict(zip(mesh.mesh_dim_names, mesh.shape))}, launches "
+          f"{counts}")
+    if not same:
+        fail("the one-device mesh changed the train step's losses")
+    dist.destroy_process_group()
+    return counts
+
+
 def main() -> None:
     import torch
 
@@ -747,24 +1120,28 @@ def main() -> None:
     # 2. Build.
     t0 = time.perf_counter()
     fa.build_kernels()
-    phase("build", f"flash_fwd and flash_bwd built in "
+    phase("build", f"flash_fwd, flash_bwd and flash_simple built in "
           f"{time.perf_counter() - t0:.1f}s (one nvcc each, in parallel; "
           f"each nvcc's own wall time: " + ", ".join(
               f"{n} {sec:.1f}s" for n, sec in _build.build_seconds.items())
           + ")")
-    for lib in ("flash_fwd", "flash_bwd"):
-        # One line per kernel instance: its name and template argument (D,
-        # or the head dimension it pads to), registers, spills, static
-        # shared memory.  ptxas names a function whose setmaxnreg it
-        # ignored (warning C7508).
+    for lib in ("flash_fwd", "flash_bwd", "flash_simple"):
+        # One line per kernel instance: its name and template arguments
+        # (the head dimension it pads to, the element type), registers,
+        # spills, static shared memory.  ptxas names a function whose
+        # setmaxnreg it ignored (warning C7508).
         entry, spill = None, ""
         for line in _build.build_logs.get(lib, "").splitlines():
             if "setmaxnreg" in line and "ignored" in line:
                 fail(f"ptxas ignored setmaxnreg: {line.strip()}")
-            m = re.search(r"\d(flash_[a-z_]+?)(?:ILi(\d+)E|E)", line)
+            m = re.search(r"\d(flash_[a-z_]+?)(?:I|E)", line)
             if "Compiling entry" in line and m:
-                entry = m.group(1) + (f"<{m.group(2)}>" if m.group(2)
-                                      else "")
+                dp = re.search(r"Li(\d+)E", line)
+                elem = ("bf16" if "bfloat16" in line else
+                        "f16" if "__half" in line else
+                        "f32" if re.search(r"kernelIf", line) else "")
+                entry = m.group(1) + "<" + ",".join(
+                    x for x in (dp.group(1) if dp else "", elem) if x) + ">"
             elif "spill" in line:
                 spill = line.split(",", 1)[-1].strip()
                 if re.search(r"[1-9]\d* bytes spill", spill):
@@ -831,12 +1208,12 @@ def main() -> None:
     logits = llama.forward(params, tokens, cfg)
     torch.cuda.synchronize()
     fwd_s = time.perf_counter() - t0
-    fwd_launches = dict(fa.launch_counts)
+    fwd_launches = launched(fa)
     phase("forward", f"llama_440m flash B=4 S=2048: {fwd_s * 1e3:.1f} ms, "
           f"{4 * 2048 / fwd_s:.0f} tok/s, launches {fwd_launches}")
-    if fwd_launches["flash_fwd"] != cfg.n_layers:
-        fail(f"flash_fwd launched {fwd_launches['flash_fwd']} times, "
-             f"expected {cfg.n_layers}")
+    if fwd_launches != {"flash_fwd": cfg.n_layers}:
+        fail(f"the forward launched {fwd_launches}, expected flash_fwd "
+             f"{cfg.n_layers} times")
     if logits.shape != (4, 2048, cfg.vocab_size) or \
             not torch.isfinite(logits).all():
         fail("llama_440m flash logits not finite / wrong shape")
@@ -882,7 +1259,7 @@ def main() -> None:
                        seed=0)
     try:
         outs, wall = run_requests(server, prompts, 32)
-        serve_launches = dict(fa.launch_counts)
+        serve_launches = launched(fa)
         if profile_dir:
             profile_run(lambda: run_requests(server, prompts, 32),
                         "serve_bf16", profile_dir)
@@ -901,7 +1278,7 @@ def main() -> None:
 
     llama.LlamaConfig.llama_440m_f32 = classmethod(
         lambda cls, **kw: cls.llama_440m(dtype=torch.float32, **kw))
-    f32_cfg = llama.LlamaConfig.llama_440m_f32(attention_impl="dot")
+    f32_cfg = llama.LlamaConfig.llama_440m_f32()  # flash: the simple family
     server = LLMServer(model_preset="llama_440m_f32", max_slots=8,
                        max_len=512, seed=0)
     try:
@@ -1043,7 +1420,7 @@ def main() -> None:
     for _ in range(TRAIN_TIMED):
         fa.reset_launch_counts()
         state, m = step(state, batch)
-        per_step.append(dict(fa.launch_counts))
+        per_step.append(launched(fa))
         metrics.append(m)
     torch.cuda.synchronize()
     step_s = (time.perf_counter() - t0) / TRAIN_TIMED
@@ -1094,7 +1471,24 @@ def main() -> None:
     del state, step, batch
     torch.cuda.empty_cache()
 
-    # 11. Kernels, then the result.
+    # 11-14. Fault C1's kernels (f16 wgmma, the simple family), the
+    # model on them, ring attention's chunk schedule and the one-device
+    # mesh.
+    c1_times = c1_kernel_phase(fa, torch, sdpa)
+    c1_launches = c1_model_phase(fa, torch, llama)
+    ring_launches = ring_phase(fa, torch, profile_dir)
+    mesh_launches = mesh_phase(fa, torch, llama)
+    want = {n: 2 * cfg.n_layers for n in ("flash_fwd", "flash_bwd_dq",
+                                          "flash_bwd_dkdv")}
+    if mesh_launches != want:
+        fail(f"the mesh train steps launched {mesh_launches}, "
+             f"expected {want}")
+    phase("launches", f"ring (bf16 chunk schedule) {ring_launches['bfloat16']}"
+          f", ring f32 {ring_launches['float32']}, f32 model path "
+          f"{c1_launches['float32']}, f16 model path "
+          f"{c1_launches['float16']}, mesh {mesh_launches}")
+
+    # 15. Kernels, then the result.
     kernels = [{
         "name": "flash_fwd", "route": "cuda", "design": DESIGN,
         "source": "ray_tpu_torch/ops/csrc/flash_fwd.cu",
@@ -1113,6 +1507,25 @@ def main() -> None:
             "ms": bwd_ms[name], "plain_ms": bwd_plain_ms,
             "bound_ms": bwd_cost[name][2], "bound_by": bwd_cost[name][3],
             "library_ms": bwd_library_ms})
+    for name, line in (("flash_fwd", 96), ("flash_bwd_dq", 216),
+                       ("flash_bwd_dkdv", 264)):
+        for suffix, path, source, design in (
+                ("_f16", "float16", "flash_fwd.cu" if name == "flash_fwd"
+                 else "flash_bwd.cu", DESIGN),
+                ("_simple", "float32", "flash_simple.cu", DESIGN_SIMPLE)):
+            t = c1_times[name + suffix]
+            kernels.append({
+                "name": name + suffix, "route": "cuda", "design": design,
+                "source": f"ray_tpu_torch/ops/csrc/{source}",
+                "replaces": f"ray_tpu/ops/flash_attention.py:{line}",
+                "launches": c1_launches[path].get(name + suffix, 0),
+                "max_abs_err": t["max_abs_err"],
+                "ms": t["ms"], "plain_ms": t["plain_ms"],
+                "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+                "library_ms": t["library_ms"]})
+    for k in kernels:
+        if not k["launches"]:
+            fail(f"{k['name']} was not launched on its main path")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": count}}), flush=True)

@@ -5,7 +5,10 @@ observability/metrics.py``) until that plane is ported (ROADMAP queue A,
 'Device plane'): counters and gauges keyed by name and tag values, read
 back by :func:`metrics_summary` in the reference's shape, ``{name:
 {"tag,values": value}}``.  The paged KV plane's series keep the
-reference's names (:func:`kv_cache_counters`).  As in the reference, the
+reference's names (:func:`kv_cache_counters`), and so do the engine's
+deadline sheds (:func:`overload_counters`) and its per-program time
+EMAs (:func:`record_program_ema`, which the reference keeps in its
+device plane, ``ray_tpu/observability/device.py``).  As in the reference, the
 registry is one per process: every engine of the process adds to the
 same series, told apart by their tags.
 """
@@ -98,3 +101,35 @@ def kv_cache_counters() -> Dict[str, _Metric]:
             "proposed tokens the target model verified and emitted "
             "(accept rate = accepted / proposed)", ("deployment",)),
     }
+
+
+def overload_counters() -> Dict[str, _Metric]:
+    """The overload series the engine feeds, under the reference's names
+    (``ray_tpu/observability/metrics.py``)."""
+    return {
+        "expired_shed": _get(
+            Counter, "ray_tpu_requests_expired_shed",
+            "deadline-expired work shed before execution "
+            "(user code never ran)", ("where",)),
+    }
+
+
+def model_plane_metrics() -> Dict[str, _Metric]:
+    """The serve engine's model-plane gauge, under the reference's name
+    (``ray_tpu/observability/device.py``)."""
+    return {
+        "program_ema": _get(
+            Gauge, "ray_tpu_serve_program_seconds",
+            "serve engine per-program execution-time EMA (prefill / "
+            "decode_chunk / spec_round)", ("deployment", "program")),
+    }
+
+
+def record_program_ema(deployment: str, program: str,
+                       seconds: Optional[float]) -> None:
+    """Publish a serve-engine per-program execution-time EMA (prefill /
+    decode_chunk / spec_round); ``None`` (no sample yet) is skipped."""
+    if seconds is None:
+        return
+    model_plane_metrics()["program_ema"].set(
+        float(seconds), tags={"deployment": deployment, "program": program})

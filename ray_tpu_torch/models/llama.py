@@ -16,8 +16,18 @@
   keeps f32 params and casts them to ``config.dtype`` at each matmul.
 - ``attention_impl="flash"`` routes attention through the sm_90a flash
   kernels (``ops/flash_attention.py``: forward, and the dq and dk/dv
-  backward behind a ``torch.autograd.Function``); the KV-cache serving
-  path uses plain attention, as the JAX package does.
+  backward behind a ``torch.autograd.Function``); ``"ring"`` through
+  ring attention over the mesh's ``seq`` axis (``ops/ring_attention.py``,
+  the same kernels per ring step).  The KV-cache serving path uses plain
+  attention, as the JAX package does.
+- On a mesh of more than one device (``parallel.use_mesh``) the forward
+  runs as one SPMD manual region per rank: the batch split over the
+  rules' batch axes, params gathered from their DTensor shards, the
+  layers through the GPipe schedule when ``pipeline_microbatches > 0``
+  and the mesh has a pipe axis (``parallel/pipeline.py``); the logits
+  come back whole on every rank.  ``with_logical_constraint`` marks the
+  reference's sites; it redistributes DTensors and leaves a manual
+  region's local tensors as they are.
 """
 
 from __future__ import annotations
@@ -32,10 +42,16 @@ from torch.profiler import record_function
 from torch.utils.checkpoint import checkpoint
 
 from ..core.device import DeviceLike, check_on, resolve_device, to_device
+from ..parallel.mesh import mesh_shape, mesh_size
+from ..parallel.sharding import (current_mesh, logical_mesh_axes,
+                                 suppress_constraints,
+                                 with_logical_constraint)
+from ..parallel.spmd import like_sharded, local_view, sharded_global_norm
 from ..serve.kv_cache import kv_quant_info
 from ..train.optim import (ClipAdamW, apply_updates, fused_adamw_init,
                            fused_adamw_update, fused_hyperparams,
-                           global_norm, tree_leaves, tree_unflatten)
+                           global_norm, tree_leaves, tree_map,
+                           tree_unflatten)
 
 Params = Dict[str, Any]
 
@@ -53,7 +69,8 @@ class LlamaConfig:
     rope_theta: float = 500000.0
     norm_eps: float = 1e-5
     dtype: torch.dtype = torch.bfloat16
-    # "dot" (plain attention) or "flash" (the CUDA flash kernels).
+    # "dot" (plain attention), "flash" (the CUDA flash kernels) or
+    # "ring" (ring attention over the mesh's seq axis).
     attention_impl: str = "dot"
     remat: bool = True
     # Rematerialization policy of the per-layer checkpoint wrapper (one
@@ -66,8 +83,9 @@ class LlamaConfig:
     # also keeps silu(gate)*up.
     remat_policy: str = "full"
     tie_embeddings: bool = False
-    # Not ported yet; a non-zero value raises (ROADMAP queue A).
+    # GPipe microbatches over the mesh's pipe axis (0: no pipeline).
     pipeline_microbatches: int = 0
+    # Not ported yet; a non-zero value raises (ROADMAP queue A).
     moe_experts: int = 0
 
     def __post_init__(self):
@@ -75,15 +93,7 @@ class LlamaConfig:
             raise NotImplementedError(
                 "moe_experts > 0: MoE is not ported yet (ROADMAP queue A, "
                 "'MoE')")
-        if self.pipeline_microbatches > 0:
-            raise NotImplementedError(
-                "pipeline_microbatches > 0: pipeline parallelism is not "
-                "ported yet (ROADMAP queue A, 'Parallelism')")
-        if self.attention_impl == "ring":
-            raise NotImplementedError(
-                "attention_impl='ring' is not ported yet (ROADMAP queue A, "
-                "'Ring attention')")
-        if self.attention_impl not in ("dot", "flash"):
+        if self.attention_impl not in ("dot", "flash", "ring"):
             raise ValueError(
                 f"unknown attention_impl {self.attention_impl!r}")
 
@@ -150,6 +160,28 @@ class LlamaConfig:
 # ---------------------------------------------------------------------------
 # Params
 # ---------------------------------------------------------------------------
+
+def param_logical_axes(config: LlamaConfig) -> Dict[str, Any]:
+    """Tree (matching init_params) of per-dim logical axis names."""
+    axes = {
+        "embed_tokens": ("vocab", "embed"),
+        "layers": {
+            "attn_norm": ("layers", None),
+            "wq": ("layers", "embed", "heads"),
+            "wk": ("layers", "embed", "kv_heads"),
+            "wv": ("layers", "embed", "kv_heads"),
+            "wo": ("layers", "heads", "embed"),
+            "mlp_norm": ("layers", None),
+            "w_gate": ("layers", "embed", "mlp"),
+            "w_up": ("layers", "embed", "mlp"),
+            "w_down": ("layers", "mlp", "embed"),
+        },
+        "final_norm": (None,),
+    }
+    if not config.tie_embeddings:
+        axes["lm_head"] = ("embed", "vocab")
+    return axes
+
 
 def init_dense(gen: torch.Generator, shape, fan_in: int,
                dtype: torch.dtype, device: torch.device) -> torch.Tensor:
@@ -377,8 +409,8 @@ def _get_attention_fn(config) -> Callable:
         from ..ops.flash_attention import flash_attention_causal
         return flash_attention_causal
     if impl == "ring":
-        raise NotImplementedError(
-            "attention_impl='ring' is not ported yet (ROADMAP queue A)")
+        from ..ops.ring_attention import ring_attention_causal
+        return ring_attention_causal
     raise ValueError(f"unknown attention_impl {impl!r}")
 
 
@@ -394,7 +426,11 @@ def _qkv_rope(x: torch.Tensor, layer: Dict[str, torch.Tensor], sin, cos,
                                               c.head_dim)
     v = matmul(h, layer["wv"].to(dt)).reshape(B, S, c.n_kv_heads,
                                               c.head_dim)
-    return apply_rope(q, sin, cos), apply_rope(k, sin, cos), v
+    q = with_logical_constraint(apply_rope(q, sin, cos), "batch", "seq",
+                                "heads", "head_dim")
+    k = with_logical_constraint(apply_rope(k, sin, cos), "batch", "seq",
+                                "kv_heads", "head_dim")
+    return q, k, v
 
 
 def _attn_out_act(x: torch.Tensor, attn: torch.Tensor,
@@ -405,16 +441,19 @@ def _attn_out_act(x: torch.Tensor, attn: torch.Tensor,
     B, S, _ = x.shape
     dt = c.dtype
     x = x + matmul(attn.reshape(B, S, c.q_dim), layer["wo"].to(dt))
+    x = with_logical_constraint(x, "batch", "seq", None)
     h = rms_norm(x, layer["mlp_norm"], c.norm_eps)
     gate = matmul(h, layer["w_gate"].to(dt))
     up = matmul(h, layer["w_up"].to(dt))
-    return x, F.silu(gate) * up
+    return x, with_logical_constraint(F.silu(gate) * up, "batch", "seq",
+                                      "mlp")
 
 
 def _ffn_down(x: torch.Tensor, ffn_act: torch.Tensor,
               layer: Dict[str, torch.Tensor],
               config: LlamaConfig) -> torch.Tensor:
-    return x + matmul(ffn_act, layer["w_down"].to(config.dtype))
+    x = x + matmul(ffn_act, layer["w_down"].to(config.dtype))
+    return with_logical_constraint(x, "batch", "seq", None)
 
 
 def _attn_out_mlp(x: torch.Tensor, attn: torch.Tensor,
@@ -482,14 +521,17 @@ def forward(params: Params, tokens, config: LlamaConfig,
     Runs on ``device`` (the card unless ``"cpu"``); params must be there.
     Differentiable: with ``config.remat``, a call whose layer weights
     require grad runs each layer under the remat policy
-    (:func:`_remat_layer`)."""
+    (:func:`_remat_layer`).  Under ``use_mesh`` of more than one device
+    every rank passes the same tokens and gets the same logits
+    (:func:`_forward_spmd`)."""
     c = config
     if positions is not None and c.attention_impl != "dot":
-        # The flash kernel masks on the raw row index, not positions —
-        # packed or offset sequences would attend across boundaries.
+        # flash/ring mask on the raw row index, not positions — packed or
+        # offset sequences would attend across boundaries.
         raise NotImplementedError(
             f"custom positions require attention_impl='dot' "
             f"(got {c.attention_impl!r})")
+    custom_positions = positions is not None
     tokens = _tokens_on(tokens, params, device)
     if positions is None:
         positions = torch.arange(tokens.shape[1], device=tokens.device
@@ -509,12 +551,89 @@ def forward(params: Params, tokens, config: LlamaConfig,
         if torch.is_grad_enabled() and any(
                 w.requires_grad for w in params["layers"].values()):
             layer_fn = _remat_layer
-    x = params["embed_tokens"].to(c.dtype)[tokens]
+    mesh = current_mesh()
+    if mesh is not None and mesh_size(mesh) > 1:
+        return _forward_spmd(params, tokens, positions, attn_positions,
+                             custom_positions, c, mesh, attention_fn,
+                             layer_fn)
+    emb = with_logical_constraint(params["embed_tokens"].to(c.dtype),
+                                  "vocab", None)
+    x = with_logical_constraint(emb[tokens], "batch", "seq", None)
     sin, cos = rope_table(positions, c.head_dim, c.rope_theta)
     for layer in _layers(params):
         x = layer_fn(x, layer, sin, cos, attn_positions, c, attention_fn)
     x = rms_norm(x, params["final_norm"], c.norm_eps)
-    return matmul(x, _head(params, c))
+    logits = matmul(x, _head(params, c))
+    return with_logical_constraint(logits, "batch", "seq", "vocab")
+
+
+def _forward_spmd(params, tokens, positions, attn_positions,
+                  custom_positions, config, mesh, attention_fn, layer_fn):
+    """The forward on a mesh of more than one device, as one manual
+    region per rank (the reference's global view, partitioned by hand):
+    the rank takes its slice of the batch over the rules' batch axes,
+    computes with params gathered from their shards
+    (``parallel.spmd.gather_param``; their gradients are summed over the
+    batch axes and re-sharded), runs the layers through the GPipe
+    schedule when ``pipeline_microbatches > 0`` and the mesh has a pipe
+    axis, and gathers the logits back whole on every rank."""
+    from ..parallel.spmd import gather_param, gather_slices, local_slice
+
+    c = config
+    sizes = mesh_shape(mesh)
+    batch_axes = [a for a in logical_mesh_axes("batch")
+                  if sizes.get(a, 1) > 1]
+    moe = c.moe_experts > 0
+    pipelined = c.pipeline_microbatches > 0 and sizes.get("pipe", 1) > 1
+    if pipelined:
+        if moe:
+            raise NotImplementedError(
+                "MoE layers inside pipeline stages are not supported "
+                "yet (the GPipe schedule carries no aux accumulator); "
+                "use expert parallelism with pipe=1")
+        if custom_positions:
+            raise NotImplementedError(
+                "pipeline parallelism assumes the default arange "
+                "position layout (packed/offset positions differ per "
+                "batch row; microbatches share one row)")
+        if c.attention_impl == "ring":
+            raise NotImplementedError(
+                "attention_impl='ring' inside pipeline stages would "
+                "nest shard_maps; use flash or dot with pipe > 1")
+
+    def gather(p):
+        return gather_param(p, mesh, batch_axes)
+
+    with suppress_constraints():
+        tok = local_slice(tokens, mesh, batch_axes, 0)
+        pos = local_slice(positions, mesh, batch_axes, 0)
+        attn_pos = None if attn_positions is None else pos
+        emb = gather(params["embed_tokens"])
+        x = emb.to(c.dtype)[tok]
+        sin, cos = rope_table(pos, c.head_dim, c.rope_theta)
+        if pipelined:
+            from ..parallel.pipeline import pipeline_layers
+
+            # A microbatch takes the broadcastable single-row tables,
+            # which are the rows' own for the default arange layout.
+            row_pos = None if attn_pos is None else attn_pos[:1]
+
+            def block(h, layer):
+                return layer_fn(h, layer, sin[:1], cos[:1], row_pos, c,
+                                attention_fn)
+
+            x = pipeline_layers(block, params["layers"], x, mesh=mesh,
+                                num_microbatches=c.pipeline_microbatches,
+                                batch_axes=batch_axes)
+        else:
+            stack = {k: gather(w) for k, w in params["layers"].items()}
+            for layer in _layers({"layers": stack}):
+                x = layer_fn(x, layer, sin, cos, attn_pos, c, attention_fn)
+        x = rms_norm(x, gather(params["final_norm"]), c.norm_eps)
+        head = (emb.to(c.dtype).T if c.tie_embeddings
+                else gather(params["lm_head"]).to(c.dtype))
+        logits = matmul(x, head)
+    return gather_slices(logits, mesh, batch_axes, 0)
 
 
 def loss_fn(params: Params, batch: Dict[str, Any], config: LlamaConfig,
@@ -621,14 +740,35 @@ def make_train_step(config: LlamaConfig, optimizer=None,
         params = state["params"]
         check_on(params["embed_tokens"], dev, "state params")
         loss, grads = value_and_grad(params, batch, config, device=dev)
+        opt_state, sharded = state["opt_state"], _is_sharded(params)
+        norm_fn = None
+        if sharded:
+            # Sharded params (DTensors from shard_params): the update is
+            # elementwise, so it runs on each rank's local shards; only
+            # the clip's global norm needs every rank (one all-reduce).
+            opt_state = _moments_like(opt_state, params)
+            gnorm = sharded_global_norm(tree_leaves(grads))
+            norm_fn = lambda _leaves: gnorm  # noqa: E731
+            like_params, like_opt = params, opt_state
+            params, grads, opt_state = (tree_map(local_view, t) for t in
+                                        (params, grads, opt_state))
         if fused:
             params, opt_state, gnorm = fused_adamw_update(
-                grads, state["opt_state"], params, inplace=donate, **hp)
+                grads, opt_state, params, inplace=donate, norm_fn=norm_fn,
+                **hp)
         else:
-            gnorm = global_norm(grads)
+            if not sharded:
+                gnorm = global_norm(grads)
             updates, opt_state = optimizer.update(
-                grads, state["opt_state"], params, inplace=donate)
+                grads, opt_state, params, inplace=donate, norm_fn=norm_fn)
             params = apply_updates(params, updates, inplace=donate)
+        if sharded:
+            # In place the DTensors already hold the update; otherwise
+            # the new local shards take their placements.
+            params, opt_state = (
+                (like_params, like_opt) if donate else
+                (_relayout(params, like_params),
+                 _relayout(opt_state, like_opt)))
         count = state["step"].add_(1) if donate else state["step"] + 1
         new_state = {"params": params, "opt_state": opt_state,
                      "step": count}
@@ -636,6 +776,29 @@ def make_train_step(config: LlamaConfig, optimizer=None,
                            "step": count.clone()}
 
     return _AnnotatedStep(step)
+
+
+def _is_sharded(params: Params) -> bool:
+    from torch.distributed.tensor import DTensor
+
+    return any(isinstance(t, DTensor) for t in tree_leaves(params))
+
+
+def _moments_like(opt_state, params: Params):
+    """The optimizer state with each moment laid out as its param (a
+    state made by ``init_train_state`` before ``shard_params`` holds
+    whole moments; the step keeps them sharded from then on)."""
+    moments = ("mu", "nu")
+    return type(opt_state)(**{
+        k: (tree_unflatten(v, [like_sharded(m, p) for m, p in zip(
+            tree_leaves(v), tree_leaves(params))]) if k in moments else v)
+        for k, v in opt_state._asdict().items()})
+
+
+def _relayout(tree, like):
+    """New local shards in ``tree`` laid out as the leaves of ``like``."""
+    return tree_unflatten(like, [like_sharded(t, l) for t, l in zip(
+        tree_leaves(tree), tree_leaves(like))])
 
 
 class _AnnotatedStep:

@@ -1,12 +1,13 @@
-// Flash attention backward for Hopper (sm_90a), bf16 in, f32 accumulate
-// and out: the dq kernel (B2) and the dk/dv kernel (B3).
+// Flash attention backward for Hopper (sm_90a), bf16 or f16 in, f32
+// accumulate and out: the dq kernel (B2) and the dk/dv kernel (B3).
 //
 // Replaces ray_tpu/ops/flash_attention.py:_dq_kernel (:216, reached
 // through _bwd_impl's pallas_call at :337) and _dkdv_kernel (:264, call
 // at :368).  They compute what those kernels compute, not a
 // block-by-block copy of them:
 //
-//   q, o, do (B, H, Sq, D) and k, v (B, H, Sk, D) bf16, q pre-scaled by
+//   q, o, do (B, H, Sq, D) and k, v (B, H, Sk, D), all bf16 or all f16
+//   (the element type T), q pre-scaled by
 //   D**-0.5 and k/v already at q's heads (the caller expands GQA and
 //   group-sums dk/dv afterwards, as the reference does); lse (B, H, Sq)
 //   f32 contiguous.  B2 first computes delta = rowsum(do * o) in f32 for
@@ -14,9 +15,9 @@
 //   it to a (B, H, Sq) buffer that B3, launched after it on the same
 //   stream, reads.  With s = q k^T (masked to -1e30 where key j > row i
 //   under causal), p = exp(s - lse) and ds = p * (do v^T - delta):
-//     B2: dq = ds k     (ds rounded to bf16, k's dtype, before the product)
-//     B3: dv = p^T do   (p rounded to bf16, do's dtype)
-//         dk = ds^T q   (ds rounded to bf16, q's dtype)
+//     B2: dq = ds k     (ds rounded to T, k's dtype, before the product)
+//     B3: dv = p^T do   (p rounded to T, do's dtype)
+//         dk = ds^T q   (ds rounded to T, q's dtype)
 //   dq (B, H, Sq, D), dk and dv (B, H, Sk, D) are f32 and contiguous.
 //   q, k, v, o and do are addressed through their batch, head and row
 //   strides (D contiguous, strides multiples of 8 elements, 16-byte
@@ -45,7 +46,7 @@
 // have landed it keeps its rows of both as register A fragments.  Per K/V
 // tile it computes S = Q K^T and dP = dO V^T with wgmma m64n64k16 from
 // those registers and K, V read K-major from shared memory, p = exp(s -
-// lse) and ds = p (dp - delta) in registers, rounds ds to bf16 in place
+// lse) and ds = p (dp - delta) in registers, rounds ds to T in place
 // (the accumulator layout of S is already the A-fragment layout of the
 // next product), and computes dQ += dS K with dS as the register A
 // operand and K read MN-major (D contiguous) from the same tile.  s, p
@@ -63,7 +64,7 @@
 // their dk and dv in f32 registers.  Per q tile a consumer computes S^T =
 // K Q^T and dP^T = V dO^T with wgmma m64n64k16 reading all four tiles
 // from shared memory, p^T = exp(s^T - lse) and ds^T = p^T (dp^T - delta)
-// in registers, rounds both to bf16 in place, and computes dV += P^T dO
+// in registers, rounds both to T in place, and computes dV += P^T dO
 // and dK += dS^T Q with the register A operand and dO, Q read MN-major
 // from shared memory.  It walks the q tiles from the diagonal to the end
 // (all of them when non-causal).  Every block owns its rows of dk and dv,
@@ -93,6 +94,7 @@
 
 #include <cuda.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -103,8 +105,6 @@ namespace {
 
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kMasked = -1e30f;  // the reference's mask value
-
-using bf16 = __nv_bfloat16;
 
 // Element strides of a (B, H, S, D) operand; D is contiguous.
 struct Strides {
@@ -136,28 +136,29 @@ struct DqSmem {
   static constexpr int kBytes = kBars + 8 * (1 + 2 * kDqStages) + 1024;
 };
 
-// acc + sum over 8 columns of a * b, both eight bf16 in 16 bytes.
+// acc + sum over 8 columns of a * b, both eight T in 16 bytes.
+template <typename T>
 __device__ __forceinline__ float dot8(uint4 a, uint4 b, float acc) {
-  const __nv_bfloat162* pa = reinterpret_cast<const __nv_bfloat162*>(&a);
-  const __nv_bfloat162* pb = reinterpret_cast<const __nv_bfloat162*>(&b);
+  const uint32_t* pa = reinterpret_cast<const uint32_t*>(&a);
+  const uint32_t* pb = reinterpret_cast<const uint32_t*>(&b);
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    const float2 x = __bfloat1622float2(pa[i]);
-    const float2 y = __bfloat1622float2(pb[i]);
+    const float2 x = hopper::unpack2<T>(pa[i]);
+    const float2 y = hopper::unpack2<T>(pb[i]);
     acc = fmaf(x.x, y.x, acc);
     acc = fmaf(x.y, y.y, acc);
   }
   return acc;
 }
 
-template <int DP>
+template <int DP, typename T>
 __global__ void __launch_bounds__(kDqThreads, 1)
 flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,
                     const __grid_constant__ CUtensorMap tk,
                     const __grid_constant__ CUtensorMap tv,
                     const __grid_constant__ CUtensorMap tdo,
-                    const bf16* __restrict__ dout,
-                    const bf16* __restrict__ o,
+                    const T* __restrict__ dout,
+                    const T* __restrict__ o,
                     const float* __restrict__ lse,
                     float* __restrict__ delta, float* __restrict__ dq, int H,
                     int Sq, int Sk, int D, int causal, Strides dos,
@@ -232,11 +233,11 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,
       const int row = i ? row_b : row_a;
       float sum = 0.f;
       if (row < Sq) {
-        const bf16* orow = o + b * os.b + h * os.h + row * os.s;
-        const bf16* drow = dout + b * dos.b + h * dos.h + row * dos.s;
+        const T* orow = o + b * os.b + h * os.h + row * os.s;
+        const T* drow = dout + b * dos.b + h * dos.h + row * dos.s;
         for (int c = 8 * t; c < D; c += 32) {
-          sum = dot8(*reinterpret_cast<const uint4*>(orow + c),
-                     *reinterpret_cast<const uint4*>(drow + c), sum);
+          sum = dot8<T>(*reinterpret_cast<const uint4*>(orow + c),
+                        *reinterpret_cast<const uint4*>(drow + c), sum);
         }
       }
       sum += __shfl_xor_sync(0xffffffffu, sum, 1);
@@ -295,19 +296,19 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
       for (int kk = 0; kk < DP / 16; ++kk) {
         const uint32_t c = (kk / 4) * kDqKeyBox + (kk % 4) * 32;
-        wgmma_rs<0>(s, qf[kk], desc_sw128(sk + c, 16, 1024), kk > 0);
+        wgmma_rs<0, T>(s, qf[kk], desc_sw128(sk + c, 16, 1024), kk > 0);
       }
 #pragma unroll
       for (int kk = 0; kk < DP / 16; ++kk) {
         const uint32_t c = (kk / 4) * kDqKeyBox + (kk % 4) * 32;
-        wgmma_rs<0>(dp, dof[kk], desc_sw128(sv + c, 16, 1024), kk > 0);
+        wgmma_rs<0, T>(dp, dof[kk], desc_sw128(sv + c, 16, 1024), kk > 0);
       }
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(s);
       fence_regs(dp);
 
-      // p = exp(s - lse), ds = p (dp - delta), rounded to bf16 in place:
+      // p = exp(s - lse), ds = p (dp - delta), rounded to T in place:
       // accumulator registers 8k..8k+7, in pairs, are the A fragment of
       // keys 16k..16k+15.
       const bool masked = k0 + kDqKeys > Sk ||
@@ -327,7 +328,7 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,
           const float p = exp2f(fmaf(x, kLog2e, -lse2[i]));
           ds[e] = p * (dp[r + e] - dlt[i]);
         }
-        dsf[r / 8][(r % 8) / 2] = pack_bf16(ds[0], ds[1]);
+        dsf[r / 8][(r % 8) / 2] = pack2<T>(ds[0], ds[1]);
       }
 
       // dQ += dS K: dS from registers, K MN-major (its rows are the
@@ -335,8 +336,8 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < kDqKeys / 16; ++kk) {
-        wgmma_rs<1>(acc, dsf[kk], desc_sw128(sk + kk * 2048, kDqKeyBox, 1024),
-                    1);
+        wgmma_rs<1, T>(acc, dsf[kk],
+                       desc_sw128(sk + kk * 2048, kDqKeyBox, 1024), 1);
       }
       wgmma_commit();
       wgmma_wait<0>();
@@ -389,7 +390,7 @@ struct DkdvSmem {
   static constexpr int kBytes = kBars + 8 * (1 + 2 * kDkdvStages) + 1024;
 };
 
-template <int DP>
+template <int DP, typename T>
 __global__ void __launch_bounds__(kDkdvThreads, 1)
 flash_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tq,
                       const __grid_constant__ CUtensorMap tk,
@@ -500,15 +501,15 @@ flash_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tq,
         for (int kk = 0; kk < DP / 16; ++kk) {
           const uint32_t a = (kk / 4) * kKeyBox + (kk % 4) * 32;
           const uint32_t c = (kk / 4) * kRowBox + (kk % 4) * 32;
-          wgmma_ss<0>(s, desc_sw128(sk + a, 16, 1024),
-                      desc_sw128(sq + c, 16, 1024), kk > 0);
+          wgmma_ss<0, T>(s, desc_sw128(sk + a, 16, 1024),
+                         desc_sw128(sq + c, 16, 1024), kk > 0);
         }
 #pragma unroll
         for (int kk = 0; kk < DP / 16; ++kk) {
           const uint32_t a = (kk / 4) * kKeyBox + (kk % 4) * 32;
           const uint32_t c = (kk / 4) * kRowBox + (kk % 4) * 32;
-          wgmma_ss<0>(dp, desc_sw128(sv + a, 16, 1024),
-                      desc_sw128(sdo + c, 16, 1024), kk > 0);
+          wgmma_ss<0, T>(dp, desc_sw128(sv + a, 16, 1024),
+                         desc_sw128(sdo + c, 16, 1024), kk > 0);
         }
         wgmma_commit();
         wgmma_wait<0>();
@@ -544,13 +545,13 @@ flash_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tq,
           }
           // Accumulator registers 8k..8k+7, in pairs, are the A fragment
           // of q rows 16k..16k+15.
-          pf[n / 2][(n % 2) * 2] = hopper::pack_bf16(s[4 * n], s[4 * n + 1]);
+          pf[n / 2][(n % 2) * 2] = hopper::pack2<T>(s[4 * n], s[4 * n + 1]);
           pf[n / 2][(n % 2) * 2 + 1] =
-              hopper::pack_bf16(s[4 * n + 2], s[4 * n + 3]);
+              hopper::pack2<T>(s[4 * n + 2], s[4 * n + 3]);
           dsf[n / 2][(n % 2) * 2] =
-              hopper::pack_bf16(dp[4 * n], dp[4 * n + 1]);
+              hopper::pack2<T>(dp[4 * n], dp[4 * n + 1]);
           dsf[n / 2][(n % 2) * 2 + 1] =
-              hopper::pack_bf16(dp[4 * n + 2], dp[4 * n + 3]);
+              hopper::pack2<T>(dp[4 * n + 2], dp[4 * n + 3]);
         }
 
         // dV += P^T dO and dK += dS^T Q: the A operands from registers,
@@ -559,13 +560,13 @@ flash_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tq,
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < kDkdvRows / 16; ++kk) {
-          wgmma_rs<1>(dv_acc, pf[kk],
-                      desc_sw128(sdo + kk * 2048, kRowBox, 1024), 1);
+          wgmma_rs<1, T>(dv_acc, pf[kk],
+                         desc_sw128(sdo + kk * 2048, kRowBox, 1024), 1);
         }
 #pragma unroll
         for (int kk = 0; kk < kDkdvRows / 16; ++kk) {
-          wgmma_rs<1>(dk_acc, dsf[kk],
-                      desc_sw128(sq + kk * 2048, kRowBox, 1024), 1);
+          wgmma_rs<1, T>(dk_acc, dsf[kk],
+                         desc_sw128(sq + kk * 2048, kRowBox, 1024), 1);
         }
         wgmma_commit();
         wgmma_wait<0>();
@@ -600,7 +601,7 @@ flash_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tq,
 
 // The operands and dimensions both launchers share, checked by make_args.
 struct Args {
-  const bf16 *q, *k, *v, *dout, *o;
+  const void *q, *k, *v, *dout, *o;
   const float* lse;
   float* delta;
   int B, H, Sq, Sk, D, causal;
@@ -608,56 +609,64 @@ struct Args {
   Strides dos, os;
 };
 
-// The four TMA maps of a launch: q and do in boxes of `q_rows` rows, k
-// and v in boxes of `k_rows` keys.  Returns 0 or a CUDA error code.
+// The four TMA maps of a launch over T operands: q and do in boxes of
+// `q_rows` rows, k and v in boxes of `k_rows` keys.  Returns 0 or a CUDA
+// error code.
+template <typename T>
 int encode_maps(const Args& a, int q_rows, int k_rows, CUtensorMap* tq,
                 CUtensorMap* tk, CUtensorMap* tv, CUtensorMap* tdo) {
+  constexpr CUtensorMapDataType dt = hopper::tensor_map_dtype<T>();
   const int64_t* st = a.strides;
-  int rc = hopper::encode_bhsd(tq, a.q, a.B, a.H, a.Sq, a.D, st, q_rows);
+  int rc =
+      hopper::encode_bhsd(tq, a.q, a.B, a.H, a.Sq, a.D, st, q_rows, dt);
   if (rc == 0)
-    rc = hopper::encode_bhsd(tk, a.k, a.B, a.H, a.Sk, a.D, st + 3, k_rows);
+    rc = hopper::encode_bhsd(tk, a.k, a.B, a.H, a.Sk, a.D, st + 3, k_rows,
+                             dt);
   if (rc == 0)
-    rc = hopper::encode_bhsd(tv, a.v, a.B, a.H, a.Sk, a.D, st + 6, k_rows);
+    rc = hopper::encode_bhsd(tv, a.v, a.B, a.H, a.Sk, a.D, st + 6, k_rows,
+                             dt);
   if (rc == 0)
     rc = hopper::encode_bhsd(tdo, a.dout, a.B, a.H, a.Sq, a.D, st + 9,
-                             q_rows);
+                             q_rows, dt);
   return rc;
 }
 
-template <int DP>
+template <int DP, typename T>
 int launch_dq(const Args& a, float* dq, cudaStream_t stream) {
   const int n_qt = (a.Sq + kDqRows - 1) / kDqRows;
   if (a.B > 65535 || n_qt > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap tq, tk, tv, tdo;
-  const int rc = encode_maps(a, kDqRows, kDqKeys, &tq, &tk, &tv, &tdo);
+  const int rc = encode_maps<T>(a, kDqRows, kDqKeys, &tq, &tk, &tv, &tdo);
   if (rc != 0) return rc;
   constexpr int smem = DqSmem<DP>::kBytes;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dq_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+      flash_bwd_dq_kernel<DP, T>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   dim3 grid(a.H, a.B, n_qt);
-  flash_bwd_dq_kernel<DP><<<grid, kDqThreads, smem, stream>>>(
-      tq, tk, tv, tdo, a.dout, a.o, a.lse, a.delta, dq, a.H, a.Sq, a.Sk, a.D,
+  flash_bwd_dq_kernel<DP, T><<<grid, kDqThreads, smem, stream>>>(
+      tq, tk, tv, tdo, static_cast<const T*>(a.dout),
+      static_cast<const T*>(a.o), a.lse, a.delta, dq, a.H, a.Sq, a.Sk, a.D,
       a.causal, a.dos, a.os);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int DP>
+template <int DP, typename T>
 int launch_dkdv(const Args& a, float* dk, float* dv, cudaStream_t stream) {
   if (a.B > 65535 || (a.Sk + kDkdvKeys - 1) / kDkdvKeys > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap tq, tk, tv, tdo;
-  const int rc = encode_maps(a, kDkdvRows, kDkdvKeys, &tq, &tk, &tv, &tdo);
+  const int rc =
+      encode_maps<T>(a, kDkdvRows, kDkdvKeys, &tq, &tk, &tv, &tdo);
   if (rc != 0) return rc;
   constexpr int smem = DkdvSmem<DP>::kBytes;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dkdv_kernel<DP>,
+      flash_bwd_dkdv_kernel<DP, T>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   dim3 grid(a.H, a.B, (a.Sk + kDkdvKeys - 1) / kDkdvKeys);
-  flash_bwd_dkdv_kernel<DP><<<grid, kDkdvThreads, smem, stream>>>(
+  flash_bwd_dkdv_kernel<DP, T><<<grid, kDkdvThreads, smem, stream>>>(
       tq, tk, tv, tdo, a.lse, a.delta, dk, dv, a.H, a.Sq, a.Sk, a.D,
       a.causal);
   return static_cast<int>(cudaGetLastError());
@@ -672,11 +681,11 @@ int make_args(Args& a, const void* q, const void* k, const void* v,
     return static_cast<int>(cudaErrorInvalidValue);
   for (int i = 0; i < 15; ++i)
     if (strides[i] % 8) return static_cast<int>(cudaErrorInvalidValue);
-  a.q = static_cast<const bf16*>(q);
-  a.k = static_cast<const bf16*>(k);
-  a.v = static_cast<const bf16*>(v);
-  a.dout = static_cast<const bf16*>(dout);
-  a.o = static_cast<const bf16*>(o);
+  a.q = q;
+  a.k = k;
+  a.v = v;
+  a.dout = dout;
+  a.o = o;
   a.lse = static_cast<const float*>(lse);
   a.delta = static_cast<float*>(delta);
   a.B = B;
@@ -691,32 +700,28 @@ int make_args(Args& a, const void* q, const void* k, const void* v,
   return 0;
 }
 
-}  // namespace
-
 // B2, and the delta pre-pass: writes delta (B, H, Sq) f32 and dq.
-extern "C" int flash_bwd_dq_bf16(const void* q, const void* k,
-                                 const void* v, const void* dout,
-                                 const void* o, const void* lse,
-                                 void* delta, void* dq, int B, int H,
-                                 int Sq, int Sk, int D, int causal,
-                                 const int64_t* strides, void* stream) {
+template <typename T>
+int dq_entry(const void* q, const void* k, const void* v, const void* dout,
+             const void* o, const void* lse, void* delta, void* dq, int B,
+             int H, int Sq, int Sk, int D, int causal,
+             const int64_t* strides, void* stream) {
   Args a;
   const int rc = make_args(a, q, k, v, dout, o, lse, delta, B, H, Sq, Sk, D,
                            causal, strides);
   if (rc) return rc;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* out = static_cast<float*>(dq);
-  if (D <= 64) return launch_dq<64>(a, out, s);
-  return launch_dq<128>(a, out, s);
+  if (D <= 64) return launch_dq<64, T>(a, out, s);
+  return launch_dq<128, T>(a, out, s);
 }
 
 // B3: reads the delta that B2 wrote; writes dk and dv.
-extern "C" int flash_bwd_dkdv_bf16(const void* q, const void* k,
-                                   const void* v, const void* dout,
-                                   const void* o, const void* lse,
-                                   void* delta, void* dk, void* dv, int B,
-                                   int H, int Sq, int Sk, int D, int causal,
-                                   const int64_t* strides, void* stream) {
+template <typename T>
+int dkdv_entry(const void* q, const void* k, const void* v,
+               const void* dout, const void* o, const void* lse,
+               void* delta, void* dk, void* dv, int B, int H, int Sq, int Sk,
+               int D, int causal, const int64_t* strides, void* stream) {
   Args a;
   const int rc = make_args(a, q, k, v, dout, o, lse, delta, B, H, Sq, Sk, D,
                            causal, strides);
@@ -724,6 +729,29 @@ extern "C" int flash_bwd_dkdv_bf16(const void* q, const void* k,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* odk = static_cast<float*>(dk);
   float* odv = static_cast<float*>(dv);
-  if (D <= 64) return launch_dkdv<64>(a, odk, odv, s);
-  return launch_dkdv<128>(a, odk, odv, s);
+  if (D <= 64) return launch_dkdv<64, T>(a, odk, odv, s);
+  return launch_dkdv<128, T>(a, odk, odv, s);
 }
+
+}  // namespace
+
+#define RT_BWD_ENTRIES(SUFFIX, TYPE)                                          \
+  extern "C" int flash_bwd_dq_##SUFFIX(                                       \
+      const void* q, const void* k, const void* v, const void* dout,          \
+      const void* o, const void* lse, void* delta, void* dq, int B, int H,    \
+      int Sq, int Sk, int D, int causal, const int64_t* strides,              \
+      void* stream) {                                                         \
+    return dq_entry<TYPE>(q, k, v, dout, o, lse, delta, dq, B, H, Sq, Sk, D,  \
+                          causal, strides, stream);                           \
+  }                                                                           \
+  extern "C" int flash_bwd_dkdv_##SUFFIX(                                     \
+      const void* q, const void* k, const void* v, const void* dout,          \
+      const void* o, const void* lse, void* delta, void* dk, void* dv, int B, \
+      int H, int Sq, int Sk, int D, int causal, const int64_t* strides,       \
+      void* stream) {                                                         \
+    return dkdv_entry<TYPE>(q, k, v, dout, o, lse, delta, dk, dv, B, H, Sq,   \
+                            Sk, D, causal, strides, stream);                  \
+  }
+
+RT_BWD_ENTRIES(bf16, __nv_bfloat16)
+RT_BWD_ENTRIES(f16, __half)

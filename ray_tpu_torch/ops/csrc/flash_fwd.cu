@@ -1,12 +1,15 @@
-// Flash attention forward for Hopper (sm_90a), bf16 in, f32 accumulate.
+// Flash attention forward for Hopper (sm_90a), bf16 or f16 in, f32
+// accumulate.
 //
 // Replaces ray_tpu/ops/flash_attention.py:_fwd_kernel (the Pallas TPU
 // kernel reached through _fwd).  It computes what that kernel computes,
 // not a block-by-block copy of it:
 //
-//   q (B, Hq, Sq, D) pre-scaled by D**-0.5, k/v (B, Hkv, Sk, D), bf16.
-//   o (B, Hq, Sq, D) bf16 = softmax(q k^T + mask) v and lse (B, Hq, Sq)
-//   f32 (contiguous) = logsumexp of the masked scores.  q, k, v and o
+//   q (B, Hq, Sq, D) pre-scaled by D**-0.5, k/v (B, Hkv, Sk, D), all
+//   bf16 or all f16 (the element type T; wgmma and TMA take both at the
+//   same shapes).  o (B, Hq, Sq, D) in T = softmax(q k^T + mask) v
+//   and lse (B, Hq, Sq) f32 (contiguous) = logsumexp of the masked
+//   scores.  q, k, v and o
 //   are addressed through their batch, head and row strides (D itself
 //   contiguous), so the model's (B, S, H, D) tensors are read and
 //   written in place, with no transposed copies.  Strides are multiples
@@ -27,7 +30,7 @@
 // consumer computes S = Q K^T with wgmma m64n128k16 reading both
 // operands from shared memory, keeps the softmax online in f32 registers
 // on S's accumulator fragment (row max and sum reduced over the four
-// threads of a row), rounds P to bf16 in registers, where the
+// threads of a row), rounds P to T in registers, where the
 // accumulator layout of S is already the A-fragment layout of the next
 // product, and computes O += P V with P as the register A operand and V
 // read MN-major (D contiguous) from shared memory.  Neither S nor P
@@ -51,6 +54,7 @@
 
 #include <cuda.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -65,7 +69,7 @@ constexpr int kBlockM = 128;   // q rows per block, 64 per consumer warpgroup
 constexpr int kBlockN = 128;   // keys per K/V tile
 constexpr int kStages = 2;     // depth of the K/V ring
 constexpr int kThreads = 384;  // producer warpgroup + 2 consumer warpgroups
-constexpr int kBoxBytes = 128 * 128;  // one (128 rows, 64 columns) bf16 box
+constexpr int kBoxBytes = 128 * 128;  // one (128 rows, 64 columns) box
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kMaskedLse = -1e30f;
 
@@ -87,12 +91,12 @@ struct Smem {
   static constexpr int kBytes = kBars + 8 * (1 + 3 * kStages) + 1024;
 };
 
-template <int DP>
+template <int DP, typename T>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
                  const __grid_constant__ CUtensorMap tk,
                  const __grid_constant__ CUtensorMap tv,
-                 __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                 T* __restrict__ o, float* __restrict__ lse,
                  int Hq, int Hkv, int Sq, int Sk, int D, int causal,
                  Strides os) {
   using L = Smem<DP>;
@@ -179,7 +183,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
       for (int kk = 0; kk < DP / 16; ++kk) {
         const uint32_t off = (kk / 4) * kBoxBytes + (kk % 4) * 32;
-        wgmma_ss<0>(s, desc_sw128(sq + off, 16, 1024),
+        wgmma_ss<0, T>(s, desc_sw128(sq + off, 16, 1024),
                     desc_sw128(sk + off, 16, 1024), kk > 0);
       }
       wgmma_commit();
@@ -223,7 +227,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
         rs[i] += p0 + p1;
         // Accumulator registers 8k..8k+7, in pairs, are the A fragment
         // of keys 16k..16k+15.
-        pf[r / 8][(r % 8) / 2] = pack_bf16(p0, p1);
+        pf[r / 8][(r % 8) / 2] = pack2<T>(p0, p1);
       }
       l[0] = l[0] * alpha[0] + rs[0];
       l[1] = l[1] * alpha[1] + rs[1];
@@ -237,8 +241,8 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < kBlockN / 16; ++kk) {
-        wgmma_rs<1>(acc, pf[kk], desc_sw128(sv + kk * 2048, kBoxBytes, 1024),
-                    1);
+        wgmma_rs<1, T>(acc, pf[kk],
+                       desc_sw128(sv + kk * 2048, kBoxBytes, 1024), 1);
       }
       wgmma_commit();
       wgmma_wait<0>();
@@ -259,11 +263,11 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
       const bool live = l[i] > 0.f;
       const float inv = live ? 1.f / l[i] : 0.f;
       if (row >= Sq) continue;
-      __nv_bfloat16* orow = o + b * os.b + h * os.h + row * os.s;
+      T* orow = o + b * os.b + h * os.h + row * os.s;
 #pragma unroll
       for (int j = 0; j < DP / 8; ++j) {
         if (8 * j < D) {
-          *reinterpret_cast<uint32_t*>(orow + 8 * j + 2 * t) = pack_bf16(
+          *reinterpret_cast<uint32_t*>(orow + 8 * j + 2 * t) = pack2<T>(
               acc[4 * j + 2 * i] * inv, acc[4 * j + 2 * i + 1] * inv);
         }
       }
@@ -276,47 +280,48 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
 }
 
 // Sk = 0: every row is fully masked.  (No tensor map can describe an
-// empty K/V.)
-__global__ void flash_fwd_no_keys(__nv_bfloat16* __restrict__ o,
+// empty K/V.)  o is 2-byte elements; all-zero bits are +0 in bf16 and f16.
+__global__ void flash_fwd_no_keys(uint16_t* __restrict__ o,
                                   float* __restrict__ lse, int Hq, int Sq,
                                   int D, Strides os) {
   const int h = blockIdx.x;
   const int b = blockIdx.y;
   for (int row = threadIdx.x; row < Sq; row += blockDim.x) {
-    __nv_bfloat16* orow = o + b * os.b + h * os.h + row * os.s;
-    for (int c = 0; c < D; ++c) orow[c] = __float2bfloat16(0.f);
+    uint16_t* orow = o + b * os.b + h * os.h + row * os.s;
+    for (int c = 0; c < D; ++c) orow[c] = 0;
     lse[static_cast<int64_t>(b * Hq + h) * Sq + row] = kMaskedLse;
   }
 }
 
-template <int DP>
+template <int DP, typename T>
 int launch(const void* q, const void* k, const void* v, void* o, void* lse,
            int B, int Hq, int Hkv, int Sq, int Sk, int D, int causal,
            const int64_t* strides, cudaStream_t stream) {
+  constexpr CUtensorMapDataType dt = tensor_map_dtype<T>();
   CUtensorMap tq, tk, tv;
-  int rc = encode_bhsd(&tq, q, B, Hq, Sq, D, strides, kBlockM);
-  if (rc == 0) rc = encode_bhsd(&tk, k, B, Hkv, Sk, D, strides + 3, kBlockN);
-  if (rc == 0) rc = encode_bhsd(&tv, v, B, Hkv, Sk, D, strides + 6, kBlockN);
+  int rc = encode_bhsd(&tq, q, B, Hq, Sq, D, strides, kBlockM, dt);
+  if (rc == 0)
+    rc = encode_bhsd(&tk, k, B, Hkv, Sk, D, strides + 3, kBlockN, dt);
+  if (rc == 0)
+    rc = encode_bhsd(&tv, v, B, Hkv, Sk, D, strides + 6, kBlockN, dt);
   if (rc != 0) return rc;
   constexpr int smem = Smem<DP>::kBytes;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_fwd_kernel<DP, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   dim3 grid(Hq, B, (Sq + kBlockM - 1) / kBlockM);
-  flash_fwd_kernel<DP><<<grid, kThreads, smem, stream>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse),
+  flash_fwd_kernel<DP, T><<<grid, kThreads, smem, stream>>>(
+      tq, tk, tv, static_cast<T*>(o), static_cast<float*>(lse),
       Hq, Hkv, Sq, Sk, D, causal,
       Strides{strides[9], strides[10], strides[11]});
   return static_cast<int>(cudaGetLastError());
 }
 
-}  // namespace
-
-extern "C" int flash_fwd_bf16(const void* q, const void* k, const void* v,
-                              void* o, void* lse, int B, int Hq, int Hkv,
-                              int Sq, int Sk, int D, int causal,
-                              const int64_t* strides, void* stream) {
+template <typename T>
+int forward(const void* q, const void* k, const void* v, void* o, void* lse,
+            int B, int Hq, int Hkv, int Sq, int Sk, int D, int causal,
+            const int64_t* strides, void* stream) {
   // strides: 12 element strides, (batch, head, row) of q, k, v, o.
   if (B <= 0 || Hq <= 0 || Hkv <= 0 || Hq % Hkv || Sq <= 0 || Sk < 0 ||
       B > 65535 || (Sq + kBlockM - 1) / kBlockM > 65535)
@@ -327,14 +332,32 @@ extern "C" int flash_fwd_bf16(const void* q, const void* k, const void* v,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (Sk == 0) {
     flash_fwd_no_keys<<<dim3(Hq, B), 128, 0, s>>>(
-        static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse), Hq, Sq, D,
+        static_cast<uint16_t*>(o), static_cast<float*>(lse), Hq, Sq, D,
         Strides{strides[9], strides[10], strides[11]});
     return static_cast<int>(cudaGetLastError());
   }
   if (D <= 64) {
-    return launch<64>(q, k, v, o, lse, B, Hq, Hkv, Sq, Sk, D, causal,
-                      strides, s);
+    return launch<64, T>(q, k, v, o, lse, B, Hq, Hkv, Sq, Sk, D, causal,
+                         strides, s);
   }
-  return launch<128>(q, k, v, o, lse, B, Hq, Hkv, Sq, Sk, D, causal, strides,
-                     s);
+  return launch<128, T>(q, k, v, o, lse, B, Hq, Hkv, Sq, Sk, D, causal,
+                        strides, s);
+}
+
+}  // namespace
+
+extern "C" int flash_fwd_bf16(const void* q, const void* k, const void* v,
+                              void* o, void* lse, int B, int Hq, int Hkv,
+                              int Sq, int Sk, int D, int causal,
+                              const int64_t* strides, void* stream) {
+  return forward<__nv_bfloat16>(q, k, v, o, lse, B, Hq, Hkv, Sq, Sk, D,
+                                causal, strides, stream);
+}
+
+extern "C" int flash_fwd_f16(const void* q, const void* k, const void* v,
+                             void* o, void* lse, int B, int Hq, int Hkv,
+                             int Sq, int Sk, int D, int causal,
+                             const int64_t* strides, void* stream) {
+  return forward<__half>(q, k, v, o, lse, B, Hq, Hkv, Sq, Sk, D, causal,
+                         strides, stream);
 }

@@ -4,11 +4,12 @@
 // TMA tensor maps.
 //
 // Conventions.  Every operand tile in shared memory is written by TMA
-// with the 128-byte swizzle: a (rows, 64) bf16 box whose 128-byte rows
-// are XOR-swizzled in groups of 8 (1024 bytes), at a 1024-byte aligned
-// address.  A head dimension above 64 is two such boxes side by side
-// (box 0 = columns 0..63, box 1 = 64..127); a head dimension below 64 is
-// one box whose columns past D TMA fills with zeros.  The same tile is
+// with the 128-byte swizzle: a (rows, 64) box of 2-byte elements (bf16 or
+// f16) whose 128-byte rows are XOR-swizzled in groups of 8 (1024 bytes),
+// at a 1024-byte aligned address.  A head dimension above 64 is two such
+// boxes side by side (box 0 = columns 0..63, box 1 = 64..127); a head
+// dimension below 64 is one box whose columns past D TMA fills with
+// zeros.  The same tile is
 // read by wgmma either K-major (its rows are the product's M or N index,
 // its columns the reduction index: Q and K in Q K^T) or MN-major (its rows
 // are the reduction index, its columns N: V in P V, the "tnspB" operand).
@@ -20,8 +21,12 @@
 #pragma once
 
 #include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace hopper {
 
@@ -179,62 +184,98 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
 // rows 16*(t/32) + (t%32)/4 + {0, 8} and columns 8*j + 2*(t%4) + {0, 1},
 // register 4*j + 2*(row half) + column) = A (64 x 16, shared memory,
 // K-major) * B (16 x N, shared memory; K-major, or MN-major when TB = 1),
-// plus d when scale_d != 0.  N = 64 or 128 by the size of d.
-template <int TB>
+// plus d when scale_d != 0.  N = 64 or 128 by the size of d.  T is the
+// operands' type, bf16 or f16 (the same shapes and layouts; only the
+// instruction's type names differ).
+#define RT_SS32(TY)                                                   \
+  asm volatile(                                                       \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"                     \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " {"      \
+      RT_REGS32 "}, %32, %33, p, 1, 1, 0, %35;\n}\n"                    \
+      : RT_D8(0), RT_D8(8), RT_D8(16), RT_D8(24)                       \
+      : "l"(a), "l"(b), "r"(scale_d), "n"(TB))
+#define RT_SS64(TY)                                                   \
+  asm volatile(                                                       \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"                     \
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " {"     \
+      RT_REGS64 "}, %64, %65, p, 1, 1, 0, %67;\n}\n"                    \
+      : RT_D8(0), RT_D8(8), RT_D8(16), RT_D8(24), RT_D8(32), RT_D8(40), \
+        RT_D8(48), RT_D8(56)                                           \
+      : "l"(a), "l"(b), "r"(scale_d), "n"(TB))
+#define RT_RS32(TY)                                                   \
+  asm volatile(                                                       \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"                     \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " {"      \
+      RT_REGS32 "}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"      \
+      : RT_D8(0), RT_D8(8), RT_D8(16), RT_D8(24)                       \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),            \
+        "r"(scale_d), "n"(TB))
+#define RT_RS64(TY)                                                   \
+  asm volatile(                                                       \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"                     \
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " {"     \
+      RT_REGS64 "}, {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"      \
+      : RT_D8(0), RT_D8(8), RT_D8(16), RT_D8(24), RT_D8(32), RT_D8(40), \
+        RT_D8(48), RT_D8(56)                                           \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),            \
+        "r"(scale_d), "n"(TB))
+
+template <typename T>
+__host__ __device__ constexpr bool is_f16() {
+  return std::is_same<T, __half>::value;
+}
+
+template <int TB, typename T = __nv_bfloat16>
 __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a,
                                          uint64_t b, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {" RT_REGS32
-      "}, %32, %33, p, 1, 1, 0, %35;\n}\n"
-      : RT_D8(0), RT_D8(8), RT_D8(16), RT_D8(24)
-      : "l"(a), "l"(b), "r"(scale_d), "n"(TB));
+  if constexpr (is_f16<T>()) {
+    RT_SS32("f16");
+  } else {
+    RT_SS32("bf16");
+  }
 }
 
-template <int TB>
+template <int TB, typename T = __nv_bfloat16>
 __device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t a,
                                          uint64_t b, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {" RT_REGS64
-      "}, %64, %65, p, 1, 1, 0, %67;\n}\n"
-      : RT_D8(0), RT_D8(8), RT_D8(16), RT_D8(24), RT_D8(32), RT_D8(40),
-        RT_D8(48), RT_D8(56)
-      : "l"(a), "l"(b), "r"(scale_d), "n"(TB));
+  if constexpr (is_f16<T>()) {
+    RT_SS64("f16");
+  } else {
+    RT_SS64("bf16");
+  }
 }
 
-// The same with A from registers: a[0..3] hold the 64 x 16 bf16 tile in
-// the accumulator's layout for 16 columns (a[0]: row r, columns 2c, 2c+1;
+// The same with A from registers: a[0..3] hold the 64 x 16 tile in the
+// accumulator's layout for 16 columns (a[0]: row r, columns 2c, 2c+1;
 // a[1]: row r + 8; a[2]: row r, columns 2c + 8, 2c + 9; a[3]: row r + 8),
 // so the accumulator registers 8k..8k+7 of a product, packed in pairs,
 // are the A fragment of its columns 16k..16k+15.
-template <int TB>
+template <int TB, typename T = __nv_bfloat16>
 __device__ __forceinline__ void wgmma_rs(float (&d)[32],
                                          const uint32_t (&a)[4], uint64_t b,
                                          int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {" RT_REGS32
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
-      : RT_D8(0), RT_D8(8), RT_D8(16), RT_D8(24)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d),
-        "n"(TB));
+  if constexpr (is_f16<T>()) {
+    RT_RS32("f16");
+  } else {
+    RT_RS32("bf16");
+  }
 }
 
-template <int TB>
+template <int TB, typename T = __nv_bfloat16>
 __device__ __forceinline__ void wgmma_rs(float (&d)[64],
                                          const uint32_t (&a)[4], uint64_t b,
                                          int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {" RT_REGS64
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
-      : RT_D8(0), RT_D8(8), RT_D8(16), RT_D8(24), RT_D8(32), RT_D8(40),
-        RT_D8(48), RT_D8(56)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d),
-        "n"(TB));
+  if constexpr (is_f16<T>()) {
+    RT_RS64("f16");
+  } else {
+    RT_RS64("bf16");
+  }
 }
 
+#undef RT_SS32
+#undef RT_SS64
+#undef RT_RS32
+#undef RT_RS64
 #undef RT_D8
 #undef RT_REGS32
 #undef RT_REGS64
@@ -243,6 +284,32 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   uint32_t r;
   asm("cvt.rn.bf16x2.f32 %0, %2, %1;\n" : "=r"(r) : "f"(lo), "f"(hi));
   return r;
+}
+
+__device__ __forceinline__ uint32_t pack_f16(float lo, float hi) {
+  uint32_t r;
+  asm("cvt.rn.f16x2.f32 %0, %2, %1;\n" : "=r"(r) : "f"(lo), "f"(hi));
+  return r;
+}
+
+// Two f32 values rounded to T (bf16 or f16) and packed, lo in the low half.
+template <typename T>
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  if constexpr (is_f16<T>()) {
+    return pack_f16(lo, hi);
+  } else {
+    return pack_bf16(lo, hi);
+  }
+}
+
+// Eight T values (16 bytes) widened to f32 pairs: element 2i, 2i + 1.
+template <typename T>
+__device__ __forceinline__ float2 unpack2(uint32_t bits) {
+  if constexpr (is_f16<T>()) {
+    return __half22float2(*reinterpret_cast<const __half2*>(&bits));
+  } else {
+    return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&bits));
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -275,12 +342,15 @@ inline EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// A rank-4 tensor map over a bf16 (B, H, S, D) operand with D contiguous,
-// from its pointer and element strides (batch, head, row; multiples of 8,
-// as TMA's 16-byte rule asks): boxes of (64 columns, box_rows rows, 1, 1)
-// with the 128-byte swizzle.  Returns 0 or a CUDA error code.
+// A rank-4 tensor map over a 2-byte (B, H, S, D) operand (bf16 unless
+// `dtype` says f16) with D contiguous, from its pointer and element
+// strides (batch, head, row; multiples of 8, as TMA's 16-byte rule asks):
+// boxes of (64 columns, box_rows rows, 1, 1) with the 128-byte swizzle.
+// Returns 0 or a CUDA error code.
 inline int encode_bhsd(CUtensorMap* map, const void* ptr, int B, int H,
-                       int S, int D, const int64_t* strides, int box_rows) {
+                       int S, int D, const int64_t* strides, int box_rows,
+                       CUtensorMapDataType dtype =
+                           CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
   EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D),
@@ -292,12 +362,19 @@ inline int encode_bhsd(CUtensorMap* map, const void* ptr, int B, int H,
                                   static_cast<cuuint64_t>(strides[0]) * 2};
   const cuuint32_t box[4] = {64, static_cast<cuuint32_t>(box_rows), 1, 1};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
-  CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+  CUresult r = fn(map, dtype, 4,
                   const_cast<void*>(ptr), dims, gstrides, box, elem,
                   CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                   CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                   CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The tensor-map element type of T (bf16 or f16).
+template <typename T>
+constexpr CUtensorMapDataType tensor_map_dtype() {
+  return is_f16<T>() ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                     : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
 }
 
 }  // namespace hopper

@@ -2,15 +2,23 @@
 ``ray_tpu/ops/flash_attention.py``): forward and backward, GQA-aware.
 
 - :func:`_fwd` is the forward kernel's wrapper: on a CUDA tensor it
-  launches the hand-written sm_90a kernel ``csrc/flash_fwd.cu`` (built
-  at first use, bound with ctypes) or raises; on a CPU tensor it runs
-  the plain PyTorch version :func:`_fwd_reference`, which computes the
-  same ``(o, lse)``.
+  launches a hand-written sm_90a kernel (built at first use, bound with
+  ctypes) or raises; on a CPU tensor it runs the plain PyTorch version
+  :func:`_fwd_reference`, which computes the same ``(o, lse)``.
 - :func:`_bwd_impl` is the backward's wrapper, with the reference's
   contract: on a CUDA tensor it computes ``delta = rowsum(do * o)`` and
-  launches the dq and dk/dv kernels of ``csrc/flash_bwd.cu`` or raises;
-  on a CPU tensor it runs :func:`_bwd_reference`.  It is public so that
-  ring attention can call it per ring step.
+  launches a dq and a dk/dv kernel or raises; on a CPU tensor it runs
+  :func:`_bwd_reference`.  It is public so that ring attention can call
+  it per ring step.
+- Which kernels a CUDA call launches depends on dtype and head dim
+  (:func:`kernel_family`), as the reference's ``flash_attention`` picks
+  its path by shape: bf16 and f16 at D in :data:`_SUPPORTED_D` go to the
+  wgmma + TMA kernels (``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu``);
+  f32, and every other head dim the reference tiles (any D <= 128,
+  multiples of 128 above), to the simple CUDA-core family
+  (``csrc/flash_simple.cu``: a true f32 computation, never tf32).  A
+  kernel that fails to build or launch raises; nothing drops to the
+  plain version.
 - :class:`_FlashCore` is the ``torch.autograd.Function`` that mirrors the
   reference's ``_flash_core`` custom VJP: its forward launches the
   forward kernel and saves the five residuals named in
@@ -41,29 +49,53 @@ NEG_INF = -1e30
 # padded problem: padded keys sit above every valid row's diagonal and
 # padded rows are sliced off, so the result is exact either way.
 _PAD_MULTIPLE = 128
+# Head dims of the wgmma kernels (bf16 and f16).
 _SUPPORTED_D = (16, 32, 48, 64, 80, 96, 112, 128)
+# The simple family's widest head dim; the reference tiles any multiple
+# of 128, no model the repo runs goes above 256.
+_SIMPLE_MAX_D = 512
+# Element-type codes of the simple family's C interface.
+_SIMPLE_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
-# Launches of each kernel, counted by its wrapper where it launches.
-launch_counts = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkdv": 0}
+# Launches of each kernel, counted by its wrapper where it launches:
+# the wgmma kernels in bf16 (no suffix) and f16, and the simple family.
+launch_counts = {
+    "flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkdv": 0,
+    "flash_fwd_f16": 0, "flash_bwd_dq_f16": 0, "flash_bwd_dkdv_f16": 0,
+    "flash_fwd_simple": 0, "flash_bwd_dq_simple": 0,
+    "flash_bwd_dkdv_simple": 0,
+}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 # Library -> (sources under csrc/: its .cu file and the headers that file
 # includes, {C function: (restype, argtypes)}).  Pointers, the int64
 # strides array and the stream are c_void_p.
+_FWD_SIG = (_I, [_P] * 5 + [_I] * 7 + [_P] * 2)
+_DQ_SIG = (_I, [_P] * 8 + [_I] * 6 + [_P] * 2)
+_DKDV_SIG = (_I, [_P] * 9 + [_I] * 6 + [_P] * 2)
 _LIBS = {
     "flash_fwd": (["flash_fwd.cu", "hopper.cuh"], {
         # q, k, v, o, lse; B, Hq, Hkv, Sq, Sk, D, causal; strides[12]
         # (q, k, v, o); stream.
-        "flash_fwd_bf16": (_I, [_P] * 5 + [_I] * 7 + [_P] * 2),
+        "flash_fwd_bf16": _FWD_SIG,
+        "flash_fwd_f16": _FWD_SIG,
     }),
     "flash_bwd": (["flash_bwd.cu", "hopper.cuh"], {
         # q, k, v, do, o, lse, delta (written), dq; B, H, Sq, Sk, D,
         # causal; strides[15] (q, k, v, do, o); stream.
-        "flash_bwd_dq_bf16": (_I, [_P] * 8 + [_I] * 6 + [_P] * 2),
+        "flash_bwd_dq_bf16": _DQ_SIG,
+        "flash_bwd_dq_f16": _DQ_SIG,
         # q, k, v, do, o, lse, delta (read), dk, dv; the same ints;
         # strides; stream.
-        "flash_bwd_dkdv_bf16": (_I, [_P] * 9 + [_I] * 6 + [_P] * 2),
+        "flash_bwd_dkdv_bf16": _DKDV_SIG,
+        "flash_bwd_dkdv_f16": _DKDV_SIG,
+    }),
+    # The same arguments after a leading element-type code.
+    "flash_simple": (["flash_simple.cu", "hopper.cuh"], {
+        "flash_fwd_simple": (_I, [_I] + _FWD_SIG[1]),
+        "flash_bwd_dq_simple": (_I, [_I] + _DQ_SIG[1]),
+        "flash_bwd_dkdv_simple": (_I, [_I] + _DKDV_SIG[1]),
     }),
 }
 
@@ -86,6 +118,35 @@ def build_kernels():
         list(pool.map(lambda name: _build.build(name, _LIBS[name][0]),
                       _LIBS))
     return {name: _lib(name) for name in _LIBS}
+
+
+def kernel_family(dtype: torch.dtype, D: int) -> str:
+    """Which kernels a CUDA call at ``dtype`` and head dim ``D`` launches:
+    ``"wgmma"`` (bf16, f16 at D in :data:`_SUPPORTED_D`) or ``"simple"``
+    (f32, bf16, f16 at any other D the reference tiles: D <= 128, or a
+    multiple of 128 up to :data:`_SIMPLE_MAX_D`).  Raises ``TypeError``
+    for another dtype and ``ValueError`` for a head dim it cannot take."""
+    if dtype not in _SIMPLE_DTYPES:
+        raise TypeError(f"flash kernels take f32, bf16 or f16, got {dtype}")
+    if dtype != torch.float32 and D in _SUPPORTED_D:
+        return "wgmma"
+    if 1 <= D <= 128 or (D % 128 == 0 and D <= _SIMPLE_MAX_D):
+        return "simple"
+    raise ValueError(f"flash kernels take D <= 128 or a multiple of 128 up "
+                     f"to {_SIMPLE_MAX_D}, got {D}")
+
+
+def _kernel(kernel: str, family: str, dtype: torch.dtype):
+    """``(C function, leading C arguments, launch-count name)`` of
+    ``kernel`` ("flash_fwd", "flash_bwd_dq" or "flash_bwd_dkdv") in
+    ``family`` at ``dtype``.  Loads (building if needed) its library."""
+    if family == "simple":
+        fn = getattr(_lib("flash_simple"), kernel + "_simple")
+        return fn, (_SIMPLE_DTYPES[dtype],), kernel + "_simple"
+    f16 = dtype == torch.float16
+    lib = _lib("flash_fwd" if kernel == "flash_fwd" else "flash_bwd")
+    fn = getattr(lib, kernel + ("_f16" if f16 else "_bf16"))
+    return fn, (), kernel + ("_f16" if f16 else "")
 
 
 def _fwd_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -123,10 +184,11 @@ def _fwd_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def _fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool):
     """q: (B, Hq, Sq, D) pre-scaled; k/v: (B, Hkv, Sk, D).  Returns
     ``o`` (B, Hq, Sq, D) in q's dtype and ``lse`` (B, Hq, Sq, 1) f32.
-    CPU tensors take the plain version; CUDA tensors launch the kernel
-    (bf16, D a multiple of 16 up to 128, D contiguous, the other strides
-    multiples of 8, 16-byte aligned) or raise.  ``o`` takes q's strides,
-    so a ``(B, S, H, D)``-backed q gives an o of that layout."""
+    CPU tensors take the plain version; CUDA tensors launch the kernel of
+    :func:`kernel_family` or raise.  The wgmma kernels read q, k, v with
+    D contiguous, the other strides multiples of 8 and 16-byte aligned
+    data; the simple family only needs D contiguous.  ``o`` takes q's
+    strides, so a ``(B, S, H, D)``-backed q gives an o of that layout."""
     B, Hq, Sq, D = q.shape
     Bk, Hkv, Sk, Dk = k.shape
     if v.shape != k.shape or Bk != B or Dk != D:
@@ -139,32 +201,30 @@ def _fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool):
     if q.device.type != "cuda" or any(t.device != q.device for t in (k, v)):
         raise ValueError(f"flash_fwd: tensors on {q.device}, {k.device}, "
                          f"{v.device}; expected one CUDA device")
-    if any(t.dtype != torch.bfloat16 for t in (q, k, v)):
-        raise TypeError(f"flash_fwd kernel takes bf16, got {q.dtype}, "
-                        f"{k.dtype}, {v.dtype}")
-    if D not in _SUPPORTED_D:
-        raise ValueError(f"flash_fwd kernel takes D in {_SUPPORTED_D}, "
-                         f"got {D}")
+    if k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"flash_fwd takes q, k, v of one dtype, got "
+                        f"{q.dtype}, {k.dtype}, {v.dtype}")
+    family = kernel_family(q.dtype, D)
     o = torch.empty_like(q)  # q's strides where q is dense
     strides = [t.stride(i) for t in (q, k, v, o) for i in range(3)]
-    if any(t.stride(3) != 1 or t.data_ptr() % 16 for t in (q, k, v, o)) \
-            or any(st % 8 for st in strides):
-        raise ValueError("flash_fwd kernel takes q, k, v with D "
-                         "contiguous, the other strides multiples of 8 "
-                         "and 16-byte aligned data")
+    if any(t.stride(3) != 1 and D > 1 for t in (q, k, v, o)):
+        raise ValueError("flash_fwd kernels take q, k, v with D contiguous")
+    if family == "wgmma" and (any(t.data_ptr() % 16 for t in (q, k, v, o))
+                              or any(st % 8 for st in strides)):
+        raise ValueError("flash_fwd's wgmma kernel takes q, k, v with the "
+                         "strides multiples of 8 and 16-byte aligned data")
     lse = torch.empty((B, Hq, Sq, 1), dtype=torch.float32, device=q.device)
     if o.numel() == 0:
         return o, lse
-    lib = _lib("flash_fwd")
+    fn, prefix, name = _kernel("flash_fwd", family, q.dtype)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     c_strides = (ctypes.c_int64 * 12)(*strides)
-    rc = lib.flash_fwd_bf16(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                            o.data_ptr(), lse.data_ptr(), B, Hq, Hkv, Sq,
-                            Sk, D, int(bool(causal)),
-                            ctypes.addressof(c_strides), stream)
+    rc = fn(*prefix, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            lse.data_ptr(), B, Hq, Hkv, Sq, Sk, D, int(bool(causal)),
+            ctypes.addressof(c_strides), stream)
     if rc != 0:
-        raise RuntimeError(f"flash_fwd kernel launch failed: cudaError {rc}")
-    launch_counts["flash_fwd"] += 1
+        raise RuntimeError(f"{name} kernel launch failed: cudaError {rc}")
+    launch_counts[name] += 1
     return o, lse
 
 
@@ -196,13 +256,17 @@ def _bwd_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return dq, dk, dv
 
 
-def _kernel_operand(t: torch.Tensor) -> torch.Tensor:
-    """``t`` itself where the kernels can read it through its strides (D
-    contiguous, the other strides multiples of 8, 16-byte aligned), else
-    a contiguous copy: e.g. the zero-stride ``do`` that autograd hands
-    over after a ``sum()``."""
-    if t.stride(3) == 1 and t.data_ptr() % 16 == 0 \
-            and all(st % 8 == 0 for st in t.stride()[:3]):
+def _kernel_operand(t: torch.Tensor, family: str) -> torch.Tensor:
+    """``t`` itself where the kernels of ``family`` can read it through its
+    strides (D contiguous; for the wgmma kernels also the other strides
+    multiples of 8 and 16-byte aligned), else a contiguous copy in the
+    same dtype: e.g. the zero-stride ``do`` that autograd hands over
+    after a ``sum()``."""
+    readable = t.stride(3) == 1 or t.shape[3] == 1
+    if family == "wgmma":
+        readable = readable and t.data_ptr() % 16 == 0 \
+            and all(st % 8 == 0 for st in t.stride()[:3])
+    if readable:
         return t
     return t.clone(memory_format=torch.contiguous_format)
 
@@ -212,9 +276,10 @@ def _bwd_impl(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               causal: bool):
     """The backward with the reference's ``_bwd_impl`` contract (see
     :func:`_bwd_reference`).  CPU tensors take the plain version; CUDA
-    tensors launch the dq kernel, which also computes delta =
-    rowsum(do * o) for the dk/dv kernel, then the dk/dv kernel (bf16 q,
-    k, v, o, do; D a multiple of 16 up to 128), or raise."""
+    tensors launch the dq kernel of :func:`kernel_family`, which also
+    computes delta = rowsum(do * o) for the dk/dv kernel, then that
+    family's dk/dv kernel (q, k, v, o, do of one dtype, f32 lse), or
+    raise."""
     B, Hq, Sq, D = q.shape
     Sk = k.shape[2]
     if (k.shape != v.shape or tuple(k.shape) != (B, Hq, Sk, D)
@@ -230,19 +295,17 @@ def _bwd_impl(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                       for t in (k, v, o, lse, do)):
         raise ValueError("flash_bwd: expected every tensor on one CUDA "
                          "device")
-    if any(t.dtype != torch.bfloat16 for t in (q, k, v, o, do)) \
+    if any(t.dtype != q.dtype for t in (k, v, o, do)) \
             or lse.dtype != torch.float32:
-        raise TypeError(f"flash_bwd kernels take bf16 q, k, v, o, do and "
-                        f"f32 lse, got {q.dtype}, {k.dtype}, {v.dtype}, "
-                        f"{o.dtype}, {do.dtype}, {lse.dtype}")
-    if D not in _SUPPORTED_D:
-        raise ValueError(f"flash_bwd kernels take D in {_SUPPORTED_D}, "
-                         f"got {D}")
+        raise TypeError(f"flash_bwd kernels take q, k, v, o, do of one "
+                        f"dtype and f32 lse, got {q.dtype}, {k.dtype}, "
+                        f"{v.dtype}, {o.dtype}, {do.dtype}, {lse.dtype}")
+    family = kernel_family(q.dtype, D)
     if q.numel() == 0 or k.numel() == 0:  # nothing attends: zero sums
         return (torch.zeros(q.shape, dtype=torch.float32, device=q.device),
                 torch.zeros(k.shape, dtype=torch.float32, device=q.device),
                 torch.zeros(k.shape, dtype=torch.float32, device=q.device))
-    args = _BwdArgs(q, k, v, o, lse, do, causal)
+    args = _BwdArgs(q, k, v, o, lse, do, causal, family)
     dq, delta = _bwd_dq(args)
     dk, dv = _bwd_dkdv(args, delta)
     return dq, dk, dv
@@ -250,26 +313,30 @@ def _bwd_impl(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 class _BwdArgs:
     """The backward kernels' operands, checked by :func:`_bwd_impl`: q,
-    k, v, do and o readable through their strides (else contiguous
-    copies), lse contiguous, and the C arguments built once for both
-    launches."""
+    k, v, do and o readable through their strides by ``family``'s
+    kernels (else contiguous copies), lse contiguous, and the C
+    arguments built once for both launches."""
 
-    def __init__(self, q, k, v, o, lse, do, causal):
+    def __init__(self, q, k, v, o, lse, do, causal, family=None):
         B, Hq, Sq, D = q.shape
+        family = family or kernel_family(q.dtype, D)
         self.device = q.device
         self.q_shape = (B, Hq, Sq, D)
         self.k_shape = tuple(k.shape)
-        self.tensors = [_kernel_operand(t) for t in (q, k, v, do, o)]
+        self.tensors = [_kernel_operand(t, family) for t in (q, k, v, do, o)]
         self.tensors.append(lse.contiguous())
         self.strides = (ctypes.c_int64 * 15)(*[
             t.stride(i) for t in self.tensors[:5] for i in range(3)])
         self.dims = (B, Hq, Sq, k.shape[2], D, int(bool(causal)))
+        self.family, self.dtype = family, q.dtype
 
-    def call(self, fn, name, *outs):
-        """Launch ``fn`` (q, k, v, do, o, lse, *outs, dims, strides,
-        stream) on the current stream; count it or raise."""
+    def call(self, kernel, *outs):
+        """Launch ``kernel`` ("flash_bwd_dq" or "flash_bwd_dkdv") of this
+        family: (q, k, v, do, o, lse, *outs, dims, strides, stream) on
+        the current stream; count it or raise."""
+        fn, prefix, name = _kernel(kernel, self.family, self.dtype)
         stream = torch.cuda.current_stream(self.device).cuda_stream
-        rc = fn(*[t.data_ptr() for t in self.tensors],
+        rc = fn(*prefix, *[t.data_ptr() for t in self.tensors],
                 *[t.data_ptr() for t in outs], *self.dims,
                 ctypes.addressof(self.strides), stream)
         if rc != 0:
@@ -283,7 +350,7 @@ def _bwd_dq(args: _BwdArgs):
     B, Hq, Sq, _ = args.q_shape
     dq = torch.empty(args.q_shape, dtype=torch.float32, device=args.device)
     delta = torch.empty((B, Hq, Sq), dtype=torch.float32, device=args.device)
-    args.call(_lib("flash_bwd").flash_bwd_dq_bf16, "flash_bwd_dq", delta, dq)
+    args.call("flash_bwd_dq", delta, dq)
     return dq, delta
 
 
@@ -291,8 +358,7 @@ def _bwd_dkdv(args: _BwdArgs, delta: torch.Tensor):
     """B3: returns ``(dk, dv)``, reading the delta that B2 wrote."""
     dk = torch.empty(args.k_shape, dtype=torch.float32, device=args.device)
     dv = torch.empty_like(dk)
-    args.call(_lib("flash_bwd").flash_bwd_dkdv_bf16, "flash_bwd_dkdv",
-              delta, dk, dv)
+    args.call("flash_bwd_dkdv", delta, dk, dv)
     return dk, dv
 
 

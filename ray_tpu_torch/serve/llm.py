@@ -71,7 +71,8 @@ from torch.profiler import record_function
 
 from ..core import deadlines as _deadlines
 from ..core.device import DeviceLike, resolve_device, to_device
-from ..core.metrics import kv_cache_counters, metrics_summary
+from ..core.metrics import (kv_cache_counters, metrics_summary,
+                            overload_counters, record_program_ema)
 from ..exceptions import BackPressureError, DeadlineExceededError
 from ..models import llama
 from .kv_cache import (NULL_BLOCK, BlockTable, KVBlockAllocator, PrefixCache,
@@ -744,8 +745,12 @@ class LLMServer:
             except queue.Empty:
                 return
 
-    def _shed(self, req: _Request, err: BaseException):
+    def _shed(self, req: _Request, err: BaseException, where: str):
+        """Fail ``req`` typed; a deadline shed also counts in
+        ``ray_tpu_requests_expired_shed{where}``."""
         req.error = err
+        if isinstance(err, DeadlineExceededError):
+            overload_counters()["expired_shed"].inc(tags={"where": where})
         req.finish_notify()
 
     def _estimate_need_s(self, req: _Request) -> Optional[float]:
@@ -780,7 +785,8 @@ class LLMServer:
                 self._shed(r, DeadlineExceededError(
                     "shed at LLM admission: deadline exceeded",
                     deadline=r.deadline,
-                    context={"where": "llm_admission"}))
+                    context={"where": "llm_admission"}),
+                    "llm_admission")
                 continue
             if r.deadline is not None:
                 need = self._estimate_need_s(r)
@@ -800,7 +806,8 @@ class LLMServer:
                             f"inside the request budget (needs "
                             f"~{need + queue_est:.2f}s)",
                             deadline=r.deadline,
-                            context={"where": "llm_admission_infeasible"}))
+                            context={"where": "llm_admission_infeasible"}),
+                            "llm_admission_infeasible")
                         continue
             keep.append(r)
         self._backlog = keep
@@ -825,7 +832,7 @@ class LLMServer:
                     # Prompt + decode exceed the whole pool: fail it
                     # typed instead of wedging the head of the backlog.
                     self._backlog.pop(0)
-                    self._shed(req, e)
+                    self._shed(req, e, "llm_admission")
                     continue
                 break  # pool pressure: retry at the next boundary
             self._backlog.pop(0)
@@ -955,6 +962,7 @@ class LLMServer:
             dt = now - t0
             self._prefill_ema = (dt if self._prefill_ema is None
                                  else 0.8 * self._prefill_ema + 0.2 * dt)
+            self._emit_ema("prefill", self._prefill_ema)
             for j, slot, req in members:
                 if self.slot_req[slot] is not req:
                     continue  # preempted while the prefill was in flight
@@ -1145,6 +1153,7 @@ class LLMServer:
         dt = now - t0
         self._chunk_ema = (dt if self._chunk_ema is None
                            else 0.8 * self._chunk_ema + 0.2 * dt)
+        self._emit_ema("spec_round", self._chunk_ema)
         proposed = accepted = emitted_total = 0
         for s, req, _l in snapshot:
             if self.slot_req[s] is not req or req.done:
@@ -1176,6 +1185,11 @@ class LLMServer:
                               else 0.8 * self._spec_tok_ema + 0.2 * per_slot)
         self._count_spec(proposed, accepted)
         return True
+
+    def _emit_ema(self, program: str, seconds) -> None:
+        """``ray_tpu_serve_program_seconds{deployment,program}``: the
+        per-program execution-time EMA the feasibility shed steers by."""
+        record_program_ema(_LABEL, program, seconds)
 
     def _count_spec(self, proposed: int, accepted: int) -> None:
         self._spec_proposed += proposed
@@ -1294,6 +1308,7 @@ class LLMServer:
         dt = now - t0
         self._chunk_ema = (dt if self._chunk_ema is None
                            else 0.8 * self._chunk_ema + 0.2 * dt)
+        self._emit_ema("decode_chunk", self._chunk_ema)
         for slot, req, len0 in snapshot:
             if req is None or req.done or self.slot_req[slot] is not req:
                 continue  # finished, or preempted after the launch

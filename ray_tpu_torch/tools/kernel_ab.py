@@ -56,8 +56,9 @@ def time_ms(fn, reps: int = 20, rounds: int = 5) -> float:
 
 
 def build_parent(parent: Path) -> dict:
-    """Build the other checkout's two kernel libraries (one nvcc each, in
-    parallel) and load them with this checkout's signatures."""
+    """Build the other checkout's kernel libraries, those whose source it
+    has (one nvcc each, in parallel), and load them with this checkout's
+    signatures of the functions they export."""
     csrc = parent / "ray_tpu_torch" / "ops" / "csrc"
     out_dir = parent / "ray_tpu_torch" / "ops" / "_build"
     out_dir.mkdir(parents=True, exist_ok=True)
@@ -72,12 +73,14 @@ def build_parent(parent: Path) -> dict:
                                f"{proc.stderr}")
         lib = ctypes.CDLL(str(so))
         for fn, (restype, argtypes) in fa._LIBS[name][1].items():
-            getattr(lib, fn).restype = restype
-            getattr(lib, fn).argtypes = argtypes
+            if hasattr(lib, fn):  # an older parent lacks later variants
+                getattr(lib, fn).restype = restype
+                getattr(lib, fn).argtypes = argtypes
         return name, lib
 
-    with ThreadPoolExecutor(len(fa._LIBS)) as pool:
-        return dict(pool.map(one, fa._LIBS))
+    names = [n for n in fa._LIBS if (csrc / f"{n}.cu").exists()]
+    with ThreadPoolExecutor(len(names)) as pool:
+        return dict(pool.map(one, names))
 
 
 @contextlib.contextmanager

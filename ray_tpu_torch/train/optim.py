@@ -27,7 +27,7 @@ untouched and new tensors are returned.
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, List, NamedTuple
+from typing import Any, Callable, Dict, List, NamedTuple, Optional
 
 import torch
 
@@ -89,12 +89,14 @@ def _count_zero(params: Tree) -> torch.Tensor:
     return torch.zeros((), dtype=torch.int32, device=device)
 
 
-def _clip(grads: List[torch.Tensor], clip_norm: float):
+def _clip(grads: List[torch.Tensor], clip_norm: float,
+          norm_fn: Optional[Callable] = None):
     """optax.clip_by_global_norm: ``g / (norm / clip_norm)`` when the norm
     is at or above ``clip_norm``, ``g`` untouched below it (the divisor
     is selected, so an unclipped step divides by exactly 1).  Returns
-    (new leaves, pre-clip norm)."""
-    gnorm = _norm(grads)
+    (new leaves, pre-clip norm).  ``norm_fn(leaves)`` replaces the norm
+    where the leaves are shards of the gradients (a sharded step)."""
+    gnorm = (norm_fn or _norm)(grads)
     divisor = torch.where(gnorm < clip_norm, torch.ones_like(gnorm),
                           gnorm / clip_norm)
     return torch._foreach_div(grads, divisor), gnorm
@@ -119,7 +121,7 @@ def _bias_corrections(count: torch.Tensor, b1: float, b2: float):
 
 def _adamw_direction(grads: Tree, state, params: Tree, b1: float, b2: float,
                      eps: float, weight_decay: float, clip_norm: float,
-                     inplace: bool):
+                     inplace: bool, norm_fn: Optional[Callable] = None):
     """The AdamW step before the learning rate, in optax's order (clip,
     scale_by_adam, add_decayed_weights):
 
@@ -130,7 +132,7 @@ def _adamw_direction(grads: Tree, state, params: Tree, b1: float, b2: float,
 
     Returns ``(u, new_state, grad_norm)``: ``u`` as leaves, the new state
     of ``state``'s type, and the PRE-clip norm."""
-    g, gnorm = _clip(tree_leaves(grads), clip_norm)
+    g, gnorm = _clip(tree_leaves(grads), clip_norm, norm_fn)
     mu, nu = _moments(g, tree_leaves(state.mu), tree_leaves(state.nu), b1,
                       b2, inplace)
     count = state.count.add_(1) if inplace else state.count + 1
@@ -174,12 +176,12 @@ class ClipAdamW:
                               nu=_zeros_like(params))
 
     def update(self, grads: Tree, state: ClipAdamWState, params: Tree,
-               inplace: bool = False):
+               inplace: bool = False, norm_fn: Optional[Callable] = None):
         """Returns ``(updates, new_state)``; ``inplace`` updates the
-        state's moments in place."""
+        state's moments in place; ``norm_fn`` as in :func:`_clip`."""
         u, new_state, _ = _adamw_direction(
             grads, state, params, self.b1, self.b2, self.eps,
-            self.weight_decay, self.clip_norm, inplace)
+            self.weight_decay, self.clip_norm, inplace, norm_fn)
         torch._foreach_mul_(u, -self.learning_rate)  # scale_by_learning_rate
         return tree_unflatten(grads, u), new_state
 
@@ -213,14 +215,15 @@ def fused_adamw_update(grads: Tree, state: FusedAdamWState, params: Tree,
                        *, learning_rate: float = 3e-4, b1: float = 0.9,
                        b2: float = 0.999, eps: float = 1e-8,
                        weight_decay: float = 0.1, clip_norm: float = 1.0,
-                       inplace: bool = False) -> tuple:
+                       inplace: bool = False,
+                       norm_fn: Optional[Callable] = None) -> tuple:
     """One fused step; returns ``(new_params, new_state, grad_norm)``
     (grad_norm is the PRE-clip norm, matching the train-step metric): the
     chain's math, with the learning-rate scale folded into the params'
     update, ``p -= lr * u`` (see :func:`_adamw_direction`)."""
     u, new_state, gnorm = _adamw_direction(grads, state, params, b1, b2,
                                            eps, weight_decay, clip_norm,
-                                           inplace)
+                                           inplace, norm_fn)
     p = tree_leaves(params)
     if inplace:
         torch._foreach_add_(p, u, alpha=-learning_rate)

@@ -173,3 +173,49 @@ def test_flash_attention_causal_grads_match_jax():
         assert t.shape == i.shape, name
         np.testing.assert_allclose(t.numpy(), np.asarray(j), atol=1e-5,
                                    err_msg=name)
+
+
+@pytest.mark.parametrize("dtype,D,family", [
+    (torch.bfloat16, 128, "wgmma"), (torch.float16, 64, "wgmma"),
+    (torch.float16, 16, "wgmma"), (torch.float32, 128, "simple"),
+    (torch.bfloat16, 72, "simple"), (torch.float16, 8, "simple"),
+    (torch.float32, 256, "simple"), (torch.bfloat16, 512, "simple"),
+])
+def test_kernel_family_by_dtype_and_head_dim(dtype, D, family):
+    """The CUDA dispatch picks its kernels by dtype and head dim, as the
+    reference's flash_attention picks its path by shape: bf16 and f16 at
+    the wgmma head dims run the wgmma kernels, f32 and every other head
+    dim the reference tiles (D <= 128, multiples of 128) the simple
+    family."""
+    assert tfa.kernel_family(dtype, D) == family
+
+
+def test_kernel_family_refuses_what_no_kernel_takes():
+    with pytest.raises(TypeError, match="f32, bf16 or f16"):
+        tfa.kernel_family(torch.float64, 128)
+    for D in (200, 640):
+        with pytest.raises(ValueError, match="multiple of 128"):
+            tfa.kernel_family(torch.float32, D)
+
+
+def test_f32_and_other_head_dims_match_jax_on_the_cpu():
+    """The dtypes and head dims of the simple family (f32; D = 72 and
+    256) through the port's wrappers (their plain versions here) against
+    the JAX kernels in interpret mode, forward and backward."""
+    for D, Sq in ((72, 128), (256, 64)):
+        q, k, v = _inputs(7, 1, 2, 2, Sq, Sq, D)
+        jo, jl = jfa._fwd(*map(jnp.asarray, (q, k, v)), causal=True,
+                          block_q=None, block_k=None, interpret=True)
+        o, lse = tfa._fwd(*map(torch.from_numpy, (q, k, v)), causal=True)
+        np.testing.assert_allclose(o.numpy(), np.asarray(jo), atol=1e-5)
+        np.testing.assert_allclose(lse.numpy(), np.asarray(jl), atol=1e-5)
+        do = np.random.default_rng(8).standard_normal(q.shape).astype(
+            np.float32)
+        ref = jfa._bwd_impl(*map(jnp.asarray, (q, k, v)), jo, jl,
+                            jnp.asarray(do), causal=True, block_q=None,
+                            block_k=None, interpret=True)
+        got = tfa._bwd_impl(*map(torch.from_numpy, (q, k, v)), o, lse,
+                            torch.from_numpy(do), causal=True)
+        for g, r in zip(got, ref):
+            np.testing.assert_allclose(g.numpy(), np.asarray(r), atol=1e-4,
+                                       rtol=1e-4)

@@ -181,10 +181,10 @@ def test_zero_stride_gradient_takes_a_contiguous_copy_on_card(monkeypatch):
     zero_strided = []
     operand = tfa._kernel_operand
 
-    def recording_operand(t):
+    def recording_operand(t, *args):
         if t.is_cuda and 0 in t.stride():
             zero_strided.append(tuple(t.stride()))
-        return operand(t)
+        return operand(t, *args)
 
     monkeypatch.setattr(tfa, "_kernel_operand", recording_operand)
     g = torch.Generator().manual_seed(3)
@@ -199,6 +199,92 @@ def test_zero_stride_gradient_takes_a_contiguous_copy_on_card(monkeypatch):
     for name, got, ref in zip(("dq", "dk", "dv"), out["cuda"], out["cpu"]):
         err = _grad_err(got.cpu(), ref)
         assert err <= TOL_CHAIN_GRAD_REL, (name, err)
+
+
+# The f32 simple family against the plain version in f32: both sum f32
+# products of the same f32 inputs, in another order (and the kernel's
+# softmax online), so each output as a whole agrees to a few f32 ulps of
+# accumulation: |got - ref|_2 / |ref|_2.
+TOL_F32_REL = 1e-5
+
+
+def _randn_dtype(g, dtype, b, h, s, d):
+    """A (B, H, S, D) view of a (B, S, H, D) tensor of ``dtype`` on the
+    card."""
+    return torch.randn(b, s, h, d, generator=g, device="cuda"
+                       ).to(dtype).transpose(1, 2)
+
+
+def _check_fwd_bwd(dtype, shape, causal, family, seed):
+    """Forward and backward of ``family`` at ``dtype`` against the plain
+    versions on the same inputs, each launch counter rising by one."""
+    B, Hq, Hkv, Sq, Sk, D = shape
+    torch.backends.cuda.matmul.allow_tf32 = False  # the plain f32 oracle
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q = _randn_dtype(g, dtype, B, Hq, Sq, D) * D ** -0.5
+    k, v = (_randn_dtype(g, dtype, B, Hkv, Sk, D) for _ in range(2))
+    sfx = {"simple": "_simple", "wgmma": "_f16"}[family]
+    before = dict(tfa.launch_counts)
+    o, lse = tfa._fwd(q, k, v, causal)
+    ro, rl = tfa._fwd_reference(q, k, v, causal)
+    assert tfa.launch_counts["flash_fwd" + sfx] == \
+        before["flash_fwd" + sfx] + 1
+    assert o.dtype == dtype and lse.dtype == torch.float32
+    if dtype == torch.float32:
+        assert _grad_err(o, ro) <= TOL_F32_REL
+        assert _grad_err(lse, rl) <= TOL_F32_REL
+    else:
+        assert (o.float() - ro.float()).abs().max().item() <= TOL_O
+        assert (lse - rl).abs().max().item() <= TOL_LSE
+    kf, vf = (t.repeat_interleave(Hq // Hkv, dim=1) for t in (k, v))
+    do = _randn_dtype(g, dtype, B, Hq, Sq, D)
+    grads = tfa._bwd_impl(q, kf, vf, o, lse, do, causal)
+    refs = tfa._bwd_reference(q, kf, vf, o, lse, do, causal)
+    torch.cuda.synchronize()
+    for kernel in ("flash_bwd_dq", "flash_bwd_dkdv"):
+        assert tfa.launch_counts[kernel + sfx] == before[kernel + sfx] + 1
+    tol = TOL_F32_REL if dtype == torch.float32 else TOL_GRAD_REL
+    for name, got, ref in zip(("dq", "dk", "dv"), grads, refs):
+        assert got.dtype == torch.float32 and torch.isfinite(got).all()
+        err = _grad_err(got, ref)
+        assert err <= tol, (name, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,causal", [
+    ((2, 4, 2, 256, 256, 128), True),
+    ((1, 4, 4, 100, 190, 64), False),
+    ((1, 2, 1, 77, 77, 16), True),
+])
+def test_f16_wgmma_kernels_match_plain_version_on_card(shape, causal):
+    """B1, B2 and B3 instantiated for f16 (f16 tensor maps and wgmma
+    operands, f32 lse and gradients) against the plain versions."""
+    _needs_card()
+    assert tfa.kernel_family(torch.float16, shape[-1]) == "wgmma"
+    _check_fwd_bwd(torch.float16, shape, causal, "wgmma", seed=11)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("shape,causal", [
+    ((1, 4, 2, 150, 130, 72), True),
+    ((1, 2, 2, 100, 190, 40), False),
+    ((1, 2, 1, 96, 96, 256), True),
+    ((1, 2, 2, 70, 70, 512), False),
+    ((2, 2, 2, 130, 130, 128), True),
+])
+def test_simple_family_matches_plain_version_on_card(dtype, shape, causal):
+    """The simple CUDA-core family (forward, dq with its delta pre-pass,
+    dk/dv) at each dtype and at head dims outside the wgmma kernels'
+    (72, 40, 256, 512), and at D = 128 in f32, against the plain versions;
+    f32 to a relative 1e-5 (no tf32 anywhere)."""
+    _needs_card()
+    D = shape[-1]
+    family = tfa.kernel_family(dtype, D)
+    if family != "simple":
+        pytest.skip(f"{dtype} at D={D} runs on the wgmma kernels")
+    _check_fwd_bwd(dtype, shape, causal, "simple", seed=12)
 
 
 # Planted faults: each inserts one line before an anchor of a kernel

@@ -102,3 +102,61 @@ def test_unported_engine_options_raise(f32_preset, kw):
     with pytest.raises(NotImplementedError if paged else ValueError,
                        match="ROADMAP" if paged else "paged"):
         LLMServer(device="cpu", warmup=False, **{**_ENGINE, **kw})
+
+
+def _shed_counts(counter):
+    return {k[0]: v for k, v in counter.snapshot().items()}
+
+
+def test_expired_shed_counter_matches_jax_engine(f32_preset):
+    """An expired request moves ``ray_tpu_requests_expired_shed`` by one
+    under the same ``where`` tag on both engines (each package keeps its
+    own per-process registry)."""
+    from ray_tpu.observability.metrics import overload_counters as jax_oc
+    from ray_tpu_torch.core.metrics import overload_counters as port_oc
+
+    request = {"prompt": [1, 2, 3], "max_new_tokens": 4, "deadline_s": -1.0}
+    moved = {}
+    for name, make, counters in (
+            ("jax", lambda: JaxServer(warmup=False, **_ENGINE), jax_oc),
+            ("port", lambda: LLMServer(device="cpu", warmup=False,
+                                       **_ENGINE), port_oc)):
+        before = _shed_counts(counters()["expired_shed"])
+        server = make()
+        try:
+            # Each package raises its own DeadlineExceededError.
+            with pytest.raises(Exception, match="deadline exceeded") as e:
+                asyncio.run(server.generate(dict(request)))
+            assert type(e.value).__name__ == "DeadlineExceededError"
+        finally:
+            server.shutdown()
+        after = _shed_counts(counters()["expired_shed"])
+        moved[name] = {k: after[k] - before.get(k, 0) for k in after
+                       if after[k] != before.get(k, 0)}
+    assert moved["port"] == moved["jax"] == {"llm_admission": 1}
+
+
+@pytest.mark.parametrize("kw,programs", [
+    (dict(), ("prefill", "decode_chunk")),
+    (dict(paged=True, block_size=8, spec_k=2, draft_layers=1),
+     ("prefill", "spec_round")),
+])
+def test_program_seconds_gauge_set_for_each_program(f32_preset, kw,
+                                                    programs):
+    """A served request sets ``ray_tpu_serve_program_seconds{deployment,
+    program}`` for every program the engine ran (the EMA the feasibility
+    shed steers by), under the reference's tags."""
+    from ray_tpu_torch.core.metrics import model_plane_metrics
+
+    gauge = model_plane_metrics()["program_ema"]
+    for key in list(gauge.snapshot()):
+        gauge._values.pop(key)
+    server = LLMServer(device="cpu", warmup=False, **{**_ENGINE, **kw})
+    try:
+        _generate(server, [[1, 2, 3, 4]], 9)
+    finally:
+        server.shutdown()
+    seen = gauge.snapshot()
+    assert gauge.tag_keys == ("deployment", "program")
+    for program in programs:
+        assert seen.get(("llm", program), 0.0) > 0.0, (program, seen)
