@@ -13,7 +13,8 @@ through the entry points a user would call, and checks the results:
 2. kernel build (one nvcc per source, all started together: the wgmma
    forward, the wgmma backward and the simple family), with its time and
    ptxas register report; it fails if ptxas ignored a kernel's
-   setmaxnreg or spilled its registers;
+   setmaxnreg or spilled its registers, or if the simple family's
+   machine code (cuobjdump -sass) holds a tensor-core instruction;
 3. flash forward kernel vs its plain version, bf16, at four shapes;
 4. kernel time vs its bound, the plain version and PyTorch's SDPA
    (timed as a yardstick only; the port never calls it), at the
@@ -51,10 +52,11 @@ through the entry points a user would call, and checks the results:
     optax-chain counterpart, whose losses must match;
 11. fault C1's kernels: the f16 instantiations of the three wgmma
     kernels and the simple CUDA-core family (f32 at the main path's
-    shape (4, 8, 2048, 128), causal and not; bf16 and f32 at D = 256 and
-    at D = 72) against their plain versions, then their times against
-    their bounds (the simple family's at the f32 CUDA-core peak), the
-    plain versions and SDPA;
+    shape (4, 8, 2048, 128), causal and not; bf16 and f32 at D = 256, at
+    D = 72 and at D = 200, f32 at D = 640) against their plain versions,
+    then their times against their bounds (the simple family's at the
+    f32 CUDA-core peak), the plain versions and SDPA, with the kernels
+    the profiler saw SDPA launch;
 12. llama_440m on the flash path in f32 (the simple family) and in f16:
     the forward at B=4 x S=2048 (f32 against plain attention) and 3
     train steps each, finite and falling loss, with the launch counts;
@@ -150,7 +152,8 @@ TOL_RING_BF16_REL = 1e-2
 TOL_RING_F32_REL = 1e-5
 # What the kernels are built from, for the kernels line.
 DESIGN = "wgmma+tma, warp-specialised"
-DESIGN_SIMPLE = "cuda-core f32 fma, shared-memory tiles"
+DESIGN_SIMPLE = ("cuda-core f32 fma, 8x8 register micro-tiles fed by "
+                 "128-bit shared loads, cp.async ring, 256 threads")
 
 
 def fail(msg: str) -> None:
@@ -802,16 +805,24 @@ def check_variant(fa, torch, dtype, shape, causal, seed):
 
 def c1_kernel_phase(fa, torch, sdpa):
     """Fault C1's kernels: the f16 wgmma instantiations and the simple
-    family (f32 at the main path's shape; bf16 and f32 at D = 256 and at
-    D = 72) against their plain versions, then their times at the main
-    path's shape.  Returns {kernel name: its kernels-line numbers}."""
+    family (f32 at the main path's shape; bf16 and f32 at D = 256, 72 and
+    200, f32 at D = 640) against their plain versions, then their times
+    at the main path's shape, SDPA's with the device kernels the profiler
+    saw it launch.  Returns {kernel name: its kernels-line numbers}."""
+    from ray_tpu_torch.tools.kernel_ab import sdpa_backend
+
     shape = (4, 8, 8, 2048, 2048, 128)
     cases = [(torch.float16, shape, True), (torch.float16, shape, False),
              (torch.float32, shape, True), (torch.float32, shape, False),
              (torch.float32, (2, 8, 8, 1024, 1024, 256), True),
              (torch.bfloat16, (2, 8, 8, 1024, 1024, 256), True),
              (torch.float32, (2, 8, 4, 1000, 1500, 72), False),
-             (torch.bfloat16, (2, 8, 4, 1000, 1500, 72), True)]
+             (torch.bfloat16, (2, 8, 4, 1000, 1500, 72), True),
+             # Fault C3: D past 128 and not a multiple of it, and past
+             # 512 (128-column slices; B2s in 512-column slices).
+             (torch.float32, (2, 8, 8, 1024, 1024, 200), True),
+             (torch.bfloat16, (2, 8, 8, 1024, 1024, 200), True),
+             (torch.float32, (1, 4, 4, 256, 256, 640), False)]
     worst = {}
     for i, (dtype, shp, causal) in enumerate(cases):
         family, errs, ok, abs_errs = check_variant(fa, torch, dtype, shp,
@@ -852,13 +863,16 @@ def c1_kernel_phase(fa, torch, sdpa):
                            reps=3, rounds=3)
         library_ms = time_ms(lambda: sdpa(q, k, v, is_causal=True,
                                           scale=1.0), **reps)
+        backend = sdpa_backend(lambda: sdpa(q, k, v, is_causal=True,
+                                            scale=1.0))
         flops, nbytes, b_ms, b_by = attention_cost(B, H, S, S, D, True,
                                                    elem, peak)
         phase("c1", f"flash_fwd{suffix} ({B},{H},{S},{D}) causal "
               f"{str(dtype)[6:]}: {ms:.4f} ms ({flops / ms / 1e9:.1f} "
               f"TFLOP/s), bound {b_ms:.4f} ms ({b_by} at "
               f"{peak / 1e12:.0f} TFLOP/s; {100 * b_ms / ms:.1f}% of it), "
-              f"plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} ms")
+              f"plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} ms "
+              f"(kernels {backend})")
         out["flash_fwd" + suffix] = dict(
             ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
             library_ms=library_ms, max_abs_err=worst["flash_fwd" + suffix])
@@ -876,6 +890,9 @@ def c1_kernel_phase(fa, torch, sdpa):
         sd = sdpa(qq, kk, vv, is_causal=True, scale=1.0)
         lib_bwd = time_ms(lambda: torch.autograd.grad(
             sd, (qq, kk, vv), do, retain_graph=True), **reps)
+        phase("c1", f"sdpa backward {str(dtype)[6:]} kernels "
+              + str(sdpa_backend(lambda: torch.autograd.grad(
+                  sd, (qq, kk, vv), do, retain_graph=True))))
         for name, (flops, nbytes, b_ms, b_by) in attention_bwd_cost(
                 B, H, S, S, D, True, elem, peak, suffix).items():
             phase("c1", f"{name} ({B},{H},{S},{D}) causal "
@@ -1149,6 +1166,22 @@ def main() -> None:
             elif "registers" in line and entry:
                 phase("build", f"ptxas {entry}: "
                       f"{line.split(':', 1)[-1].strip()}; {spill}")
+    # The simple family is a true f32 computation: its machine code holds
+    # FFMA and no tensor-core instruction (HMMA, HGMMA and kin).
+    cuobjdump = os.path.join(os.path.dirname(_build.nvcc_path()),
+                             "cuobjdump")
+    lib = _build.library_path("flash_simple", fa._LIBS["flash_simple"][0])
+    if os.path.exists(cuobjdump):
+        sass = subprocess.run([cuobjdump, "-sass", str(lib)],
+                              capture_output=True, text=True).stdout
+        ffma = len(re.findall(r"\bFFMA\b", sass))
+        tensor = len(re.findall(r"\b[HIDQB]G?MMA\b", sass))
+        phase("build", f"flash_simple SASS: {ffma} FFMA, {tensor} "
+              f"tensor-core instructions")
+        if tensor or not ffma:
+            fail("flash_simple is not a CUDA-core f32 computation")
+    else:
+        phase("build", "flash_simple SASS not read (no cuobjdump)")
 
     # 3. Kernel vs plain version.
     # (B, Hq, Hkv, Sq, Sk, D).  The first case is the main path's shape

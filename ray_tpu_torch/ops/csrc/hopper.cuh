@@ -89,6 +89,40 @@ __device__ __forceinline__ void bar_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(threads) : "memory");
 }
 
+// ---- cp.async ------------------------------------------------------------
+
+// An asynchronous copy of BYTES (4, 8 or 16) from global to shared memory
+// that reads `src_bytes` of them (0 or BYTES) and fills the rest with
+// zeros.  Both addresses are aligned to BYTES.  The copy belongs to the
+// thread's next cp_async_commit group.
+template <int BYTES>
+__device__ __forceinline__ void cp_async(void* dst, const void* src,
+                                         int src_bytes) {
+  static_assert(BYTES == 4 || BYTES == 8 || BYTES == 16, "cp.async size");
+  if constexpr (BYTES == 16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+                 :: "r"(smem_u32(dst)), "l"(src), "r"(src_bytes)
+                 : "memory");
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n"
+                 :: "r"(smem_u32(dst)), "l"(src), "n"(BYTES),
+                    "r"(src_bytes)
+                 : "memory");
+  }
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most N of the thread's committed groups are in flight;
+// the completed copies are then visible to this thread (to the others
+// after a barrier).
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
 // ---- TMA -----------------------------------------------------------------
 
 // One box of a rank-4 tensor map into shared memory; completion adds the

@@ -14,8 +14,8 @@
   (:func:`kernel_family`), as the reference's ``flash_attention`` picks
   its path by shape: bf16 and f16 at D in :data:`_SUPPORTED_D` go to the
   wgmma + TMA kernels (``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu``);
-  f32, and every other head dim the reference tiles (any D <= 128,
-  multiples of 128 above), to the simple CUDA-core family
+  f32, and every other head dim (the reference's ``flash_attention``
+  returns a result at every D), to the simple CUDA-core family
   (``csrc/flash_simple.cu``: a true f32 computation, never tf32).  A
   kernel that fails to build or launch raises; nothing drops to the
   plain version.
@@ -51,9 +51,6 @@ NEG_INF = -1e30
 _PAD_MULTIPLE = 128
 # Head dims of the wgmma kernels (bf16 and f16).
 _SUPPORTED_D = (16, 32, 48, 64, 80, 96, 112, 128)
-# The simple family's widest head dim; the reference tiles any multiple
-# of 128, no model the repo runs goes above 256.
-_SIMPLE_MAX_D = 512
 # Element-type codes of the simple family's C interface.
 _SIMPLE_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
@@ -123,17 +120,16 @@ def build_kernels():
 def kernel_family(dtype: torch.dtype, D: int) -> str:
     """Which kernels a CUDA call at ``dtype`` and head dim ``D`` launches:
     ``"wgmma"`` (bf16, f16 at D in :data:`_SUPPORTED_D`) or ``"simple"``
-    (f32, bf16, f16 at any other D the reference tiles: D <= 128, or a
-    multiple of 128 up to :data:`_SIMPLE_MAX_D`).  Raises ``TypeError``
-    for another dtype and ``ValueError`` for a head dim it cannot take."""
+    (f32, bf16, f16 at every other D >= 1; wider D than a block holds
+    is split into column slices over the grid).  Raises
+    ``TypeError`` for another dtype and ``ValueError`` for D < 1."""
     if dtype not in _SIMPLE_DTYPES:
         raise TypeError(f"flash kernels take f32, bf16 or f16, got {dtype}")
+    if D < 1:
+        raise ValueError(f"flash kernels take a head dim D >= 1, got {D}")
     if dtype != torch.float32 and D in _SUPPORTED_D:
         return "wgmma"
-    if 1 <= D <= 128 or (D % 128 == 0 and D <= _SIMPLE_MAX_D):
-        return "simple"
-    raise ValueError(f"flash kernels take D <= 128 or a multiple of 128 up "
-                     f"to {_SIMPLE_MAX_D}, got {D}")
+    return "simple"
 
 
 def _kernel(kernel: str, family: str, dtype: torch.dtype):

@@ -93,6 +93,8 @@ def _anchors():
            for name, fault in tests._FAULTS.items()]
     out += [(name, "flash_fwd.cu", fault[0])
             for name, fault in tests._FWD_FAULTS.items()]
+    out += [(name, "flash_simple.cu", fault[0])
+            for name, fault in tests._SIMPLE_FAULTS.items()]
     return out
 
 
@@ -102,3 +104,16 @@ def test_planted_fault_anchor_occurs_once(name, source, anchor):
     """Each planted fault of the on-card tests inserts its line before an
     anchor that occurs exactly once in its kernel source."""
     assert (_build.CSRC / source).read_text().count(anchor) == 1, name
+
+
+def test_simple_family_uses_no_tensor_cores():
+    """The simple family is a true f32 computation (the f32 token gates
+    need it): its source, comments aside, names no tensor-core
+    instruction (mma, wgmma, tf32), and of hopper.cuh it takes only the
+    cp.async helpers and the 16-bit widening."""
+    code = re.sub(r"//[^\n]*", "", (_build.CSRC / "flash_simple.cu")
+                  .read_text())
+    assert not re.search(r"(?<![A-Za-z])mma|wgmma|tf32|TF32|HG?MMA", code)
+    used = set(re.findall(r"hopper::(\w+)", code))
+    assert used <= {"cp_async", "cp_async_commit", "cp_async_wait",
+                    "unpack2"}, used

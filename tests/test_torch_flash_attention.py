@@ -191,18 +191,25 @@ def test_kernel_family_by_dtype_and_head_dim(dtype, D, family):
 
 
 def test_kernel_family_refuses_what_no_kernel_takes():
+    """Only another dtype and a head dim below 1 are refused: the
+    reference's flash_attention returns a result at every D, and the
+    simple family takes every D >= 1 (wider than 128 in slices of 128
+    columns), in f32, bf16 and f16."""
     with pytest.raises(TypeError, match="f32, bf16 or f16"):
         tfa.kernel_family(torch.float64, 128)
-    for D in (200, 640):
-        with pytest.raises(ValueError, match="multiple of 128"):
-            tfa.kernel_family(torch.float32, D)
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
+        for D in (200, 640, 1024):
+            assert tfa.kernel_family(dtype, D) == "simple", (dtype, D)
+        with pytest.raises(ValueError, match="D >= 1"):
+            tfa.kernel_family(dtype, 0)
 
 
 def test_f32_and_other_head_dims_match_jax_on_the_cpu():
-    """The dtypes and head dims of the simple family (f32; D = 72 and
-    256) through the port's wrappers (their plain versions here) against
-    the JAX kernels in interpret mode, forward and backward."""
-    for D, Sq in ((72, 128), (256, 64)):
+    """The dtypes and head dims of the simple family (f32; D = 72, 256,
+    and 200 and 640, which the kernels split into 128-column slices)
+    through the port's wrappers (their plain versions here) against the
+    JAX kernels in interpret mode, forward and backward."""
+    for D, Sq in ((72, 128), (256, 64), (200, 64), (640, 64)):
         q, k, v = _inputs(7, 1, 2, 2, Sq, Sq, D)
         jo, jl = jfa._fwd(*map(jnp.asarray, (q, k, v)), causal=True,
                           block_q=None, block_k=None, interpret=True)

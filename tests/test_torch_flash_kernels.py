@@ -273,12 +273,16 @@ def test_f16_wgmma_kernels_match_plain_version_on_card(shape, causal):
     ((1, 2, 1, 96, 96, 256), True),
     ((1, 2, 2, 70, 70, 512), False),
     ((2, 2, 2, 130, 130, 128), True),
+    ((1, 4, 2, 150, 130, 200), True),
+    ((1, 2, 2, 70, 70, 640), False),
 ])
 def test_simple_family_matches_plain_version_on_card(dtype, shape, causal):
     """The simple CUDA-core family (forward, dq with its delta pre-pass,
     dk/dv) at each dtype and at head dims outside the wgmma kernels'
-    (72, 40, 256, 512), and at D = 128 in f32, against the plain versions;
-    f32 to a relative 1e-5 (no tf32 anywhere)."""
+    (72, 40, 256, 512; 200 and 640, which run as 128-column slices, and
+    past 512 columns B2s as 512-column slices), and at D = 128 in f32,
+    against the plain versions; f32 to a relative 1e-5 (no tf32
+    anywhere)."""
     _needs_card()
     D = shape[-1]
     family = tfa.kernel_family(dtype, D)
@@ -318,6 +322,21 @@ _FWD_FAULTS = {
     "fwd_skips_a_kv_tile": (
         _B1_ANCHOR, "      if (it == 1) { mbar_wait(full_v + st, ph); "
         f"{_RELEASE} }}\n"),
+}
+
+# The simple family's: B1s and B3s walk a stream of chunks, each behind
+# one barrier, so skipping a chunk's product (after its barrier) keeps
+# the ring running.
+_SIMPLE_FAULTS = {
+    # B1s skips the PV chunks of the second K/V tile of every q tile past
+    # the first.
+    "fwd_simple_skips_a_kv_tile": (
+        "      const float* Pc = Ps + vc * kChunk;",
+        "      if (k0 == kFwdKeys) continue;\n", "o"),
+    # B3s skips dV and dK of the third q tile of every key tile.
+    "dkdv_simple_skips_a_q_tile": (
+        "      const int pc = rc * kChunk;",
+        "      if (q0 == (first + 2) * kBwdRows) continue;\n", "dv"),
 }
 
 
@@ -402,3 +421,41 @@ def test_fwd_check_refuses_planted_fault(fault, tmp_path, monkeypatch):
           f"{TOL_LSE})")
     assert real[0] <= TOL_O and real[1] <= TOL_LSE
     assert planted[0] > TOL_O or planted[1] > TOL_LSE
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fault", sorted(_SIMPLE_FAULTS))
+def test_simple_check_refuses_planted_fault(fault, tmp_path, monkeypatch):
+    """At the f32 path's shape and layout, (4, 8, 2048, 128) causal on
+    (B, S, H, D) views, the real simple kernels pass the f32 check
+    (|d|_2 / |ref|_2 <= 1e-5) and a copy of flash_simple.cu that drops
+    one tile of B1s or B3s fails it.  The backward runs on the plain
+    forward's o and lse, so each reading is of one kernel.  Prints both
+    readings (run with ``-s``)."""
+    _needs_card()
+    anchor, line, out = _SIMPLE_FAULTS[fault]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    B, H, S, D = 4, 8, 2048, 128
+    g = torch.Generator(device="cuda").manual_seed(9)
+    q = _randn_dtype(g, torch.float32, B, H, S, D) * D ** -0.5
+    k, v, do = (_randn_dtype(g, torch.float32, B, H, S, D)
+                for _ in range(3))
+    ro, rl = tfa._fwd_reference(q, k, v, True)
+    ref = {"o": ro, "dv": tfa._bwd_reference(q, k, v, ro, rl, do, True)[2]}
+
+    def reading():
+        if out == "o":
+            return _grad_err(tfa._fwd(q, k, v, True)[0], ref["o"])
+        return _grad_err(tfa._bwd_impl(q, k, v, ro, rl, do, True)[2],
+                         ref["dv"])
+
+    real = reading()
+    lib = _planted_library(tmp_path, "flash_simple.cu", anchor, line)
+    real_lib = tfa._lib
+    monkeypatch.setattr(tfa, "_lib", lambda name: lib
+                        if name == "flash_simple" else real_lib(name))
+    planted = reading()
+    print(f"{fault}: {out} |d|/|ref| real {real:.3e}, planted "
+          f"{planted:.3e} (tol {TOL_F32_REL})")
+    assert real <= TOL_F32_REL
+    assert planted > TOL_F32_REL
