@@ -819,7 +819,7 @@ def c1_kernel_phase(fa, torch, sdpa):
              (torch.float32, (2, 8, 4, 1000, 1500, 72), False),
              (torch.bfloat16, (2, 8, 4, 1000, 1500, 72), True),
              # Fault C3: D past 128 and not a multiple of it, and past
-             # 512 (128-column slices; B2s in 512-column slices).
+             # 512 (128-column slices).
              (torch.float32, (2, 8, 8, 1024, 1024, 200), True),
              (torch.bfloat16, (2, 8, 8, 1024, 1024, 200), True),
              (torch.float32, (1, 4, 4, 256, 256, 640), False)]

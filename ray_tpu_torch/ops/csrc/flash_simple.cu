@@ -28,36 +28,39 @@
 //
 // Bound.  At the main path's shape (B=4, H=8, S=2048, D=128, causal;
 // 2,098,176 visible pairs per (b, h)) the forward does 4 D pairs =
-// 3.44e10 FLOP and dk/dv 8 D pairs = 6.87e10: 0.513 and 1.026 ms at the
-// card's 67 TFLOP/s f32 (CUDA-core) peak, against ~0.03 ms for their
-// bytes.  Both are bound by operations: an SM issues at most 4
-// warp-wide FMAs a clock, and every other instruction (a shared load, an
-// address, an exp) takes one of those slots.
+// 3.44e10 FLOP, dq 6 D pairs and the delta pass = 5.16e10 and dk/dv 8 D
+// pairs = 6.87e10: 0.513, 0.770 and 1.026 ms at the card's 67 TFLOP/s
+// f32 (CUDA-core) peak, against ~0.03 ms for their bytes.  All three are
+// bound by operations: an SM issues at most 4 warp-wide FMAs a clock,
+// and every other instruction (a shared load, an address, an exp) takes
+// one of those slots.
 //
-// What held the first version of B1s and B3s to 26-28% and 14% of that
-// bound (an H100 80GB HBM3 at 700 W), and what this design does about
-// each:
+// What held the first versions to 26-28% (B1s), 20% (B2s) and 14% (B3s)
+// of that bound (an H100 80GB HBM3 at 700 W), and what this design does
+// about each:
 // - One scalar shared load fed 1.6-3.2 FMAs (8 x 8 thread grid, 4x8 or
 //   2x8 register tiles, rows padded by one float).  Here every product
 //   is a register micro-tile fed by 128-bit shared loads whose four
 //   floats run along the product's reduction index; tiles are stored
 //   with rows padded by 4 floats (36 or 132), so the 16 lanes of a half
 //   warp reading 16 rows at one column hit 8 distinct bank quads and the
-//   other half warp reads the same rows or one other.  B1s: S and PV are
-//   8 x 8 a thread (16 loads per 256 FMAs).  B3s: dV and dK are 8 x 8
-//   (32 loads per 512 FMAs); S^T and dP^T are 8 keys x 4 rows (12 loads
-//   per 128 FMAs), because the two 8 x 8 gradients stay in registers
-//   beside them (128 of a thread's 255; p goes to shared memory so that
-//   S^T and dP^T are never live together).
-// - Four warps per SM (one block of 128 threads, 116 KB of shared
+//   other half warp reads the same rows or one other.  B1s: S
+//   and PV are 8 x 8 a thread (16 loads per 256 FMAs), and so are B2s's
+//   S, dP and dQ.  B3s: dV and dK are 8 x 8 (32 loads per 512 FMAs); S^T
+//   and dP^T are 8 keys x 4 rows (12 loads per 128 FMAs), because the
+//   two 8 x 8 gradients stay in registers beside them (128 of a thread's
+//   255; p goes to shared memory so that S^T and dP^T are never live
+//   together, as it does in B2s).
+// - Four warps per SM (one block of 128 threads, 116 to 149 KB of shared
 //   memory).  Here a block is 256 threads (8 warps, two per scheduler,
 //   249-255 registers each and no spill: the [build] report).  Shared
 //   memory at D = 128 in f32: B1s holds P (128 rows x 132), each row's
 //   running max and sum, and a ring of 3 stages of 36,864 B (a 128 x 36
-//   chunk of Q and one of K, or 32 x 132 of V): 179,200 B.  B3s holds
-//   P^T and dS^T (128 keys x 68 each) and 3 stages of 33,792 B (128 x 36
-//   of K or V with 64 x 36 of Q or dO, or 32 x 132 of dO and of Q):
-//   171,008 B.  Both fit the 232,448 B a block may use.
+//   chunk of Q and one of K, or 32 x 132 of V): 179,200 B; B2s the same
+//   with each row's lse and delta.  B3s holds P^T and dS^T (128 keys x 68
+//   each) and 3 stages of 33,792 B (128 x 36 of K or V with 64 x 36 of Q
+//   or dO, or 32 x 132 of dO and of Q): 171,008 B.  All fit the 232,448 B
+//   a block may use.
 // - Copies ran between two barriers with a divide and a modulo per
 //   element.  Here each block walks one stream of chunks, and thread i
 //   copies 4-element groups i + 256 j of the chunk two ahead (three
@@ -66,28 +69,24 @@
 //   stage the next copy overwrites, and a cursor advanced without
 //   divisions names the next chunk.  A 16-bit T lands in a raw stage
 //   (8-byte cp.async) and the thread that copied a group widens it to
-//   f32 once, before that barrier (a 16-bit forward fits two stages).
-//   Operands whose addresses or strides are not multiples of 4 elements
-//   are copied by plain loads instead (correct, not overlapped).  Inside
-//   a chunk, B1s loads the next step's operands into a second register
-//   buffer while a step's FMAs run; B3s has no registers for that.
+//   f32 once, before that barrier (a 16-bit forward or dq fits two
+//   stages).  Operands whose addresses or strides are not multiples of 4
+//   elements are copied by plain loads instead (correct, not
+//   overlapped).  Inside a chunk, B1s (and B2s for S and dP) loads the
+//   next step's operands into a second register buffer while a step's
+//   FMAs run; B3s has no registers for that.
 // - B3s held 32 keys per block at D = 128, reading Q and dO Sk / 32
 //   times per (b, h).  Here it holds 128 keys: Sk / 128 times.
-// Causal blocks skip the key tiles above their last row (B1s) and the q
-// tiles below their first key (B3s), and only tiles that cross the
-// diagonal or the sequence's end apply the mask; B1s launches the
+// Causal blocks skip the key tiles above their last row (B1s, B2s) and
+// the q tiles below their first key (B3s), and only tiles that cross the
+// diagonal or the sequence's end apply the mask; B1s and B2s launch the
 // longest q tiles first.  exp(x) is computed as exp2(x log2 e).
 //
-// Every head dimension.  A B1s or B3s block writes 128 columns of o, dk
-// and dv (its slice of D; columns past D are zeros it does not store)
-// and reduces S = Q K^T (and dP = dO V^T) over all of D in chunks of
-// 32, so D > 128 runs ceil(D / 128) slices in the grid, each computing
-// S again, and only the first slice writes lse.  B2s keeps its first
-// design (128 threads, whole tiles of 64 to 512 columns, scalar shared
-// loads; its redesign is later work): D is padded with zeros to 64, 128,
-// 256 or 512 and, above 512, split into slices of 512 whose blocks
-// reduce S and dP over every 512-column chunk; only the first slice
-// writes delta.
+// Every head dimension.  A block writes 128 columns of o, dq, dk and dv
+// (its slice of D; columns past D are zeros it does not store) and
+// reduces S = Q K^T (and dP = dO V^T) over all of D in chunks of 32, so
+// D > 128 runs ceil(D / 128) slices in the grid, each computing S again,
+// and only the first slice writes lse (B1s) or delta (B2s).
 //
 // Interface: plain C, loaded with ctypes.  `dtype` is 0 for f32, 1 for
 // bf16, 2 for f16.  Kernels launch on the caller's stream and allocate
@@ -190,20 +189,21 @@ __device__ __forceinline__ float half_max(float x) {
 // Rows [r0, r0 + R) x columns [c0, c0 + W) of one (b, h) slice of a
 // (B, H, S, D) operand (`base`, row stride `rs`) into an f32 tile of row
 // stride LD; rows at or past `rows` and columns at or past D are zeros.
-// Thread t takes the 4-element groups t + 256 j.  With `vec` (every
-// group aligned: vec_ok) a group is one cp.async: into the f32 tile for
-// f32, into `raw` (the same layout in T) for a 16-bit T, which
-// widen_tile turns into f32 once it has landed.  Otherwise the thread
-// loads and stores the elements itself.
+// Thread t (threadIdx.x unless given) takes the 4-element groups t + 256
+// j.  With `vec` (every group aligned: vec_ok) a group is one cp.async:
+// into the f32 tile for f32, into `raw` (the same layout in T) for a
+// 16-bit T, which widen_tile turns into f32 once it has landed.
+// Otherwise the thread loads and stores the elements itself.
 template <typename T, int R, int W, int LD>
 __device__ __forceinline__ void copy_tile(float* tile, T* raw, const T* base,
                                           int64_t rs, int r0, int rows,
-                                          int c0, int D, bool vec) {
+                                          int c0, int D, bool vec,
+                                          int t = threadIdx.x) {
   constexpr int kG = W / 4;  // groups per row
   static_assert((R * kG) % kThreads == 0, "whole groups per thread");
 #pragma unroll
   for (int j = 0; j < R * kG / kThreads; ++j) {
-    const int u = threadIdx.x + j * kThreads;
+    const int u = t + j * kThreads;
     const int r = u / kG;
     const int c = (u % kG) * 4;
     const bool in = r0 + r < rows && c0 + c < D;
@@ -227,20 +227,26 @@ __device__ __forceinline__ void copy_tile(float* tile, T* raw, const T* base,
   }
 }
 
-// The groups this thread copied into `raw` by copy_tile<T, R, W, LD>,
+// Four 16-bit elements (8 bytes), widened to f32.
+template <typename T>
+__device__ __forceinline__ float4 widen4(uint2 bits) {
+  const float2 lo = hopper::unpack2<T>(bits.x);
+  const float2 hi = hopper::unpack2<T>(bits.y);
+  return make_float4(lo.x, lo.y, hi.x, hi.y);
+}
+
+// The groups thread t copied into `raw` by copy_tile<T, R, W, LD>,
 // widened to f32 in `tile` (16-bit T only).
 template <typename T, int R, int W, int LD>
-__device__ __forceinline__ void widen_tile(float* tile, const T* raw) {
+__device__ __forceinline__ void widen_tile(float* tile, const T* raw,
+                                           int t = threadIdx.x) {
   constexpr int kG = W / 4;
 #pragma unroll
   for (int j = 0; j < R * kG / kThreads; ++j) {
-    const int u = threadIdx.x + j * kThreads;
+    const int u = t + j * kThreads;
     const int at = (u / kG) * LD + (u % kG) * 4;
-    const uint2 bits = *reinterpret_cast<const uint2*>(raw + at);
-    const float2 lo = hopper::unpack2<T>(bits.x);
-    const float2 hi = hopper::unpack2<T>(bits.y);
-    *reinterpret_cast<float4*>(tile + at) = make_float4(lo.x, lo.y, hi.x,
-                                                        hi.y);
+    *reinterpret_cast<float4*>(tile + at) =
+        widen4<T>(*reinterpret_cast<const uint2*>(raw + at));
   }
 }
 
@@ -588,202 +594,248 @@ flash_simple_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// B2s: dq, with the delta pre-pass (the first design, 128 threads)
+// B2s: dq, with the delta pre-pass
 // ---------------------------------------------------------------------------
+//
+// B1s's skeleton with three products a K/V tile where B1s has two: S = Q
+// K^T and dP = dO V^T as 8 x 8 register tiles (p = exp(s - lse) goes to
+// P in shared memory, so that S and dP are never live together, and ds =
+// p (dp - delta) is written back over it), then dQ += dS K as B1s's O +=
+// P V with dS for P and K's column slice for V.  Shared memory is B1s's
+// layout: P (128 rows x 132), each row's lse and delta, and a ring of 3
+// stages of 36,864 B at f32 (179,200 B; 2 stages for a 16-bit T).  254
+// registers and no spill in each instance (the [build] report).
 
-constexpr int kDqThreads = 128;  // 16 row groups x 8 lanes
-
-// Sum and max over the eight lanes of a row group (lanes 8g .. 8g + 7).
-__device__ __forceinline__ float group_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  x += __shfl_xor_sync(0xffffffffu, x, 2);
-  x += __shfl_xor_sync(0xffffffffu, x, 4);
-  return x;
-}
-
-// Rows [r0, r0 + ROWS) of one (b, h) slice of a (B, H, S, D) operand into
-// a (ROWS, DP + 1) f32 tile; rows past S and columns past D are zeros.
-template <typename T, int ROWS, int DP>
-__device__ __forceinline__ void load_tile(float* tile, const T* base,
-                                          int64_t row_stride, int r0, int S,
-                                          int D) {
-  for (int i = threadIdx.x; i < ROWS * DP; i += kDqThreads) {
-    const int r = i / DP;
-    const int c = i % DP;
-    float x = 0.f;
-    if (r0 + r < S && c < D) {
-      x = Elem<T>::load(base + static_cast<int64_t>(r0 + r) * row_stride + c);
+// The 4 elements at p in f32: one vector load with `vec` (the group is
+// aligned and whole: vec_ok), else the first n of them and zeros.
+template <typename T>
+__device__ __forceinline__ float4 load4(const T* p, int n, bool vec) {
+  if (vec) {
+    if constexpr (sizeof(T) == 4) {
+      return *reinterpret_cast<const float4*>(p);
+    } else {
+      return widen4<T>(*reinterpret_cast<const uint2*>(p));
     }
-    tile[r * (DP + 1) + c] = x;
   }
+  float x[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) x[e] = e < n ? Elem<T>::load(p + e) : 0.f;
+  return make_float4(x[0], x[1], x[2], x[3]);
 }
 
-template <int DP>
-struct DqCfg {
-  static constexpr int BM = DP <= 128 ? 64 : (DP == 256 ? 32 : 16);  // rows
-  static constexpr int BN = DP <= 256 ? 64 : 32;  // keys per K/V tile
-  static constexpr int TM = BM / 16;
-  static constexpr int TN = BN / 8;
-  static constexpr int TC = DP / 8;
-  static constexpr int LD = DP + 1;
-  static constexpr int LP = BN + 1;
-  static constexpr int kQ = 0;
-  static constexpr int kDo = kQ + BM * LD;
-  static constexpr int kK = kDo + BM * LD;
-  static constexpr int kV = kK + BN * LD;
-  static constexpr int kS = kV + BN * LD;
-  static constexpr int kBytes = (kS + BM * LP) * 4;
-};
+// threadIdx.x, read anew where it is called (a volatile read the compiler
+// neither hoists nor merges): B2s's copies derive their addresses from it
+// at each chunk instead of holding them in registers through the
+// products, which left ptxas a few registers short.
+__device__ __forceinline__ int tid_now() {
+  int t;
+  asm volatile("mov.u32 %0, %%tid.x;" : "=r"(t));
+  return t;
+}
 
-// One block per (slice of DP columns of dq, head, batch, q tile).  D <=
-// DP has one slice, and Q and dO stay in shared memory; past DP, S and dP
-// sum over every DP-column chunk of Q, dO, K and V, and K's slice is
-// loaded again for dQ.
-template <typename T, int DP>
-__global__ void __launch_bounds__(kDqThreads)
+// One block per (slice of 128 columns of dq, head, batch, 128-row q
+// tile).  It first sums delta = rowsum(dO * O) over all of D for its rows
+// (a half warp a row; every slice needs it, only the first writes it out
+// for the dk/dv launch) while the ring's first copies land.  Its stream
+// of chunks, for each K/V tile: the D / 32 chunks of Q and K (S = Q K^T),
+// the D / 32 chunks of dO and V (dP = dO V^T), then the 4 chunks of 32
+// keys of K's slice (dQ += dS K).  Thread (ty, tx) owns rows ty + 16 i
+// and keys tx + 16 j of S and dP (i, j < 8), and rows ty + 16 i by
+// columns 4 tx + {0..3} and 64 + 4 tx + {0..3} of dQ.
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 1)
 flash_simple_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, const T* __restrict__ dout,
                        const T* __restrict__ o, const float* __restrict__ lse,
                        float* __restrict__ delta, float* __restrict__ dq,
-                       int H, int Sq, int Sk, int D, int causal, Strides qs,
-                       Strides ks, Strides vs, Strides dos, Strides os) {
-  using C = DqCfg<DP>;
-  extern __shared__ float smem[];
-  float* Qs = smem + C::kQ;
-  float* Dos = smem + C::kDo;
-  float* Ks = smem + C::kK;
-  float* Vs = smem + C::kV;
-  float* DSs = smem + C::kS;
+                       int H, int Sq, int Sk, int D, int causal, int vec,
+                       Strides qs, Strides ks, Strides vs, Strides dos,
+                       Strides os) {
+  using R = Ring<T, kFwdFixed, kFwdSlot>;
+  extern __shared__ float4 smem4[];
+  float* Ps = reinterpret_cast<float*>(smem4);
+  float* Ls = Ps + kFwdRows * kLdp;
+  float* Ds = Ls + kFwdRows;
+  float* ring = Ps + kFwdFixed;
+  T* raw = reinterpret_cast<T*>(ring + R::kStages * kFwdSlot);
 
-  const int n_chunks = (D + DP - 1) / DP;  // > 1 only for D > 512
-  const int h = blockIdx.x / n_chunks;
-  const int slice = blockIdx.x % n_chunks;
+  const int n_slices = (D + kCols - 1) / kCols;
+  const int h = blockIdx.x / n_slices;
+  const int c0 = (blockIdx.x % n_slices) * kCols;
   const int b = blockIdx.y;
-  const int q0 = (gridDim.z - 1 - blockIdx.z) * C::BM;
-  const int ty = threadIdx.x / 8;
-  const int tx = threadIdx.x % 8;
-  const int64_t row_off = static_cast<int64_t>(b * H + h) * Sq;
+  // Longest causal rows first: the last q tile has the most K/V tiles.
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * kFwdRows;
+  const int ty = threadIdx.x / 16;
+  const int tx = threadIdx.x % 16;
   const T* qb = q + b * qs.b + h * qs.h;
-  const T* db = dout + b * dos.b + h * dos.h;
   const T* kb = k + b * ks.b + h * ks.h;
   const T* vb = v + b * vs.b + h * vs.h;
-  if (n_chunks == 1) {
-    load_tile<T, C::BM, DP>(Qs, qb, qs.s, q0, Sq, D);
-    load_tile<T, C::BM, DP>(Dos, db, dos.s, q0, Sq, D);
-  }
+  const T* db = dout + b * dos.b + h * dos.h;
+  // Row q0 of this (b, h) in lse, delta and dq (rows of D).
+  const int64_t row0 = static_cast<int64_t>(b * H + h) * Sq + q0;
+  const int nd = (D + kChunk - 1) / kChunk;
+  const int per = 2 * nd + kFwdKeys / kChunk;  // chunks per K/V tile
+  const int kv_end = causal ? min(Sk, q0 + kFwdRows) : Sk;
 
-  // delta = rowsum(dO * O) in f32 for this thread's rows (the group's
-  // eight lanes split the columns), and lse.
-  float dl[C::TM], ls[C::TM];
-#pragma unroll
-  for (int i = 0; i < C::TM; ++i) {
-    const int row = q0 + ty * C::TM + i;
-    float sum = 0.f;
-    if (row < Sq) {
-      const T* orow = o + b * os.b + h * os.h + row * os.s;
-      const T* drow = db + row * dos.s;
-      for (int c = tx; c < D; c += 8) {
-        sum = fmaf(Elem<T>::load(drow + c), Elem<T>::load(orow + c), sum);
+  // The copy cursor, as in B1s: stage cs, K/V tile ck, place cr in the
+  // tile's chunks.
+  int cs = 0, ck = 0, cr = 0;
+  auto issue = [&]() {
+    if (ck < kv_end) {
+      float* tile = ring + cs * kFwdSlot;
+      T* rt = raw + cs * kFwdSlot;
+      const int t = tid_now();
+      if (cr < 2 * nd) {
+        const bool sc = cr < nd;  // S: Q and K; dP: dO and V
+        const int off = (sc ? cr : cr - nd) * kChunk;
+        copy_tile<T, kFwdRows, kChunk, kLd>(tile, rt, sc ? qb : db,
+                                            sc ? qs.s : dos.s, q0, Sq, off,
+                                            D, vec, t);
+        copy_tile<T, kFwdKeys, kChunk, kLd>(
+            tile + kFwdRows * kLd, rt + kFwdRows * kLd, sc ? kb : vb,
+            sc ? ks.s : vs.s, ck, Sk, off, D, vec, t);
+      } else {
+        copy_tile<T, kChunk, kCols, kLdc>(tile, rt, kb, ks.s,
+                                          ck + (cr - 2 * nd) * kChunk, Sk,
+                                          c0, D, vec, t);
       }
     }
-    sum = group_sum(sum);
-    dl[i] = sum;
-    ls[i] = row < Sq ? lse[row_off + row] : 0.f;
-    if (tx == 0 && row < Sq && slice == 0) delta[row_off + row] = sum;
-  }
-
-  float acc[C::TM][C::TC];
-#pragma unroll
-  for (int i = 0; i < C::TM; ++i)
-#pragma unroll
-    for (int c = 0; c < C::TC; ++c) acc[i][c] = 0.f;
-
-  const int kv_end = causal ? min(Sk, q0 + C::BM) : Sk;
-  for (int k0 = 0; k0 < kv_end; k0 += C::BN) {
-    // S = Q K^T and dP = dO V^T, over every chunk of D.
-    float s[C::TM][C::TN], dp[C::TM][C::TN];
-#pragma unroll
-    for (int i = 0; i < C::TM; ++i)
-#pragma unroll
-      for (int j = 0; j < C::TN; ++j) s[i][j] = dp[i][j] = 0.f;
-    for (int ch = 0; ch < n_chunks; ++ch) {
-      const int off = ch * DP;
-      __syncthreads();  // the last tile's readers are done
-      if (n_chunks > 1) {
-        load_tile<T, C::BM, DP>(Qs, qb + off, qs.s, q0, Sq, D - off);
-        load_tile<T, C::BM, DP>(Dos, db + off, dos.s, q0, Sq, D - off);
-      }
-      load_tile<T, C::BN, DP>(Ks, kb + off, ks.s, k0, Sk, D - off);
-      load_tile<T, C::BN, DP>(Vs, vb + off, vs.s, k0, Sk, D - off);
-      __syncthreads();
-#pragma unroll 2
-      for (int d = 0; d < DP; ++d) {
-        float qv[C::TM], dov[C::TM], kv[C::TN], vv[C::TN];
-#pragma unroll
-        for (int i = 0; i < C::TM; ++i) {
-          qv[i] = Qs[(ty * C::TM + i) * C::LD + d];
-          dov[i] = Dos[(ty * C::TM + i) * C::LD + d];
-        }
-#pragma unroll
-        for (int j = 0; j < C::TN; ++j) {
-          kv[j] = Ks[(tx + 8 * j) * C::LD + d];
-          vv[j] = Vs[(tx + 8 * j) * C::LD + d];
-        }
-#pragma unroll
-        for (int i = 0; i < C::TM; ++i)
-#pragma unroll
-          for (int j = 0; j < C::TN; ++j) {
-            s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-            dp[i][j] = fmaf(dov[i], vv[j], dp[i][j]);
-          }
-      }
+    cp_async_commit();
+    cs = cs + 1 == R::kStages ? 0 : cs + 1;
+    if (++cr == per) {
+      cr = 0;
+      ck += kFwdKeys;
     }
+  };
 
-    // p = exp(s - lse), ds = p (dp - delta), rounded to T (k's dtype).
-#pragma unroll
-    for (int i = 0; i < C::TM; ++i) {
-      const int row = q0 + ty * C::TM + i;
-#pragma unroll
-      for (int j = 0; j < C::TN; ++j) {
-        const int col = k0 + tx + 8 * j;
-        const float x =
-            (col >= Sk || (causal && col > row)) ? kMasked : s[i][j];
-        const float p = expf(x - ls[i]);
-        DSs[(ty * C::TM + i) * C::LP + tx + 8 * j] =
-            Elem<T>::round(p * (dp[i][j] - dl[i]));
+  auto begin = [&](bool d_chunk) -> const float* {
+    cp_async_wait<R::kStages - 2>();
+    const int bs = cs + 1 == R::kStages ? 0 : cs + 1;
+    float* tile = ring + bs * kFwdSlot;
+    if constexpr (sizeof(T) < 4) {
+      if (vec) {
+        const T* rt = raw + bs * kFwdSlot;
+        const int t = tid_now();
+        if (d_chunk) {  // a chunk of D columns: S or dP
+          widen_tile<T, kFwdRows, kChunk, kLd>(tile, rt, t);
+          widen_tile<T, kFwdKeys, kChunk, kLd>(tile + kFwdRows * kLd,
+                                               rt + kFwdRows * kLd, t);
+        } else {
+          widen_tile<T, kChunk, kCols, kLdc>(tile, rt, t);
+        }
       }
     }
     __syncthreads();
-    if (slice != n_chunks - 1) {  // Ks holds the last chunk: load ours
-      load_tile<T, C::BN, DP>(Ks, kb + slice * DP, ks.s, k0, Sk,
-                              D - slice * DP);
-      __syncthreads();
-    }
+    issue();
+    return tile;
+  };
 
-    // dQ += dS K.
-#pragma unroll 4
-    for (int kk = 0; kk < C::BN; ++kk) {
-      float dsv[C::TM];
 #pragma unroll
-      for (int i = 0; i < C::TM; ++i)
-        dsv[i] = DSs[(ty * C::TM + i) * C::LP + kk];
+  for (int n = 0; n < R::kStages - 1; ++n) issue();
+
+  // delta = rowsum(dO * O) in f32, the half warp ty summing rows 8 ty +
+  // {0..7} (lane tx the 4-element groups 4 tx + 64 m), and lse, into
+  // shared memory (read after the first chunk's barrier).  Not the rows
+  // ty + 16 i of the products: the compiler would keep this pass's row
+  // indices and bounds for the final store, through the K/V loop.
 #pragma unroll
-      for (int c = 0; c < C::TC; ++c) {
-        const float kv = Ks[kk * C::LD + tx + 8 * c];
-#pragma unroll
-        for (int i = 0; i < C::TM; ++i) acc[i][c] = fmaf(dsv[i], kv, acc[i][c]);
+  for (int i = 0; i < 8; ++i) {
+    const int r = 8 * ty + i;
+    float sum = 0.f;
+    if (q0 + r < Sq) {
+      const T* drow = db + (q0 + r) * dos.s;
+      const T* orow = o + b * os.b + h * os.h + (q0 + r) * os.s;
+      for (int c = 4 * tx; c < D; c += 64) {
+        const float4 x = load4(drow + c, D - c, vec);
+        const float4 y = load4(orow + c, D - c, vec);
+        sum = fmaf(x.w, y.w, fmaf(x.z, y.z, fmaf(x.y, y.y,
+                                                 fmaf(x.x, y.x, sum))));
       }
+    }
+    sum = half_sum(sum);
+    if (tx == 0) {
+      Ds[r] = sum;
+      Ls[r] = q0 + r < Sq ? lse[row0 + r] : 0.f;  // past Sq: ds = 0
+      if (q0 + r < Sq && c0 == 0) delta[row0 + r] = sum;
     }
   }
 
+  float acc[8][8];
 #pragma unroll
-  for (int i = 0; i < C::TM; ++i) {
-    const int row = q0 + ty * C::TM + i;
-    if (row >= Sq) continue;
-    float* dqrow = dq + (row_off + row) * D;
+  for (int i = 0; i < 8; ++i)
 #pragma unroll
-    for (int c = 0; c < C::TC; ++c) {
-      const int col = slice * DP + tx + 8 * c;
+    for (int c = 0; c < 8; ++c) acc[i][c] = 0.f;
+
+  for (int k0 = 0; k0 < kv_end; k0 += kFwdKeys) {
+    // S = Q K^T, 32 columns of D a chunk.
+    float s[8][8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) s[i][j] = 0.f;
+    for (int dc = 0; dc < nd; ++dc) {
+      const float* Qc = begin(true);
+      chunk_product<8, 8, true, kFwdPipe>(s, Qc, ty, Qc + kFwdRows * kLd,
+                                          tx);
+    }
+    // p = exp(s - lse), unrounded, into P (each thread its own entries),
+    // so that S and dP are never live together.  Only a tile that crosses
+    // the diagonal or Sk masks.
+    const bool edge =
+        k0 + kFwdKeys > Sk || (causal && k0 + kFwdKeys - 1 > q0);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int row = q0 + ty + 16 * i;
+      const float ls = Ls[ty + 16 * i];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int col = k0 + tx + 16 * j;
+        const float x = edge && (col >= Sk || (causal && col > row))
+                            ? kMasked : s[i][j];
+        Ps[(ty + 16 * i) * kLdp + tx + 16 * j] = exp2f((x - ls) * kLog2e);
+      }
+    }
+
+    // dP = dO V^T.
+    float dp[8][8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) dp[i][j] = 0.f;
+    for (int dc = 0; dc < nd; ++dc) {
+      const float* dOc = begin(true);
+      chunk_product<8, 8, true, kFwdPipe>(dp, dOc, ty, dOc + kFwdRows * kLd,
+                                          tx);
+    }
+    // ds = p (dp - delta), rounded to T (k's dtype), over p in P (read by
+    // every thread after the next chunk's barrier).
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const float dl = Ds[ty + 16 * i];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int at = (ty + 16 * i) * kLdp + tx + 16 * j;
+        Ps[at] = Elem<T>::round(Ps[at] * (dp[i][j] - dl));
+      }
+    }
+
+    // dQ += dS K, 32 keys a chunk.  One operand buffer: with B1s's two,
+    // B2s ran slower.
+    for (int kc = 0; kc < kFwdKeys / kChunk; ++kc) {
+      const float* Kc = begin(false);
+      const float* dSc = Ps + kc * kChunk;
+      chunk_product_pv<kLdp, false>(acc, dSc, ty, Kc, tx);
+    }
+  }
+  cp_async_wait<0>();
+
+  float* dqrow = dq + (row0 + ty) * D;
+#pragma unroll
+  for (int i = 0; i < 8; ++i, dqrow += 16 * D) {
+    if (q0 + ty + 16 * i >= Sq) continue;
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      const int col = c0 + (c < 4 ? 4 * tx + c : 60 + 4 * tx + c);
       if (col < D) dqrow[col] = acc[i][c];
     }
   }
@@ -1008,10 +1060,10 @@ Strides strides_at(const int64_t* st, int i) {
   return Strides{st[3 * i], st[3 * i + 1], st[3 * i + 2]};
 }
 
-// Whether every 4-element group that copy_tile reads from the first n
-// operands starts on a 4-element boundary (so that it can be one
-// cp.async): D, their strides and their addresses in elements multiples
-// of 4.
+// Whether every 4-element group that copy_tile (or B2s's load4) reads
+// from the first n operands starts on a 4-element boundary (so that it
+// can be one cp.async or vector load): D, their strides and their
+// addresses in elements multiples of 4.
 int vec_ok(int elem, int D, const void* const* ptrs, int n,
            const int64_t* st) {
   if (D % 4) return 0;
@@ -1049,27 +1101,24 @@ int launch_fwd(const void* q, const void* k, const void* v, void* o,
   return static_cast<int>(cudaGetLastError());
 }
 
-// B2s's tile width: D zero-padded to 64, 128, 256 or 512, above 512
-// slices of 512.
-int dq_width(int D) {
-  return D <= 64 ? 64 : D <= 128 ? 128 : D <= 256 ? 256 : 512;
-}
-
-template <typename T, int DP>
+template <typename T>
 int launch_dq(const void* q, const void* k, const void* v, const void* dout,
               const void* o, const void* lse, void* delta, void* dq, int B,
               int H, int Sq, int Sk, int D, int causal, const int64_t* st,
               cudaStream_t stream) {
-  using C = DqCfg<DP>;
-  const int rc = prepare(flash_simple_dq_kernel<T, DP>, C::kBytes);
+  using R = Ring<T, kFwdFixed, kFwdSlot>;
+  const int rc = prepare(flash_simple_dq_kernel<T>, R::kBytes);
   if (rc) return rc;
-  dim3 grid(H * ((D + DP - 1) / DP), B, (Sq + C::BM - 1) / C::BM);
-  flash_simple_dq_kernel<T, DP><<<grid, kDqThreads, C::kBytes, stream>>>(
+  const void* ptrs[5] = {q, k, v, dout, o};
+  const int vec = vec_ok(sizeof(T), D, ptrs, 5, st);
+  dim3 grid(H * ((D + kCols - 1) / kCols), B,
+            (Sq + kFwdRows - 1) / kFwdRows);
+  flash_simple_dq_kernel<T><<<grid, kThreads, R::kBytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout),
       static_cast<const T*>(o), static_cast<const float*>(lse),
       static_cast<float*>(delta), static_cast<float*>(dq), H, Sq, Sk, D,
-      causal, strides_at(st, 0), strides_at(st, 1), strides_at(st, 2),
+      causal, vec, strides_at(st, 0), strides_at(st, 1), strides_at(st, 2),
       strides_at(st, 3), strides_at(st, 4));
   return static_cast<int>(cudaGetLastError());
 }
@@ -1103,6 +1152,12 @@ struct Fwd {
 };
 
 template <typename T>
+struct Dq {
+  template <typename... A>
+  static int run(A... a) { return launch_dq<T>(a...); }
+};
+
+template <typename T>
 struct Dkdv {
   template <typename... A>
   static int run(A... a) { return launch_dkdv<T>(a...); }
@@ -1115,26 +1170,6 @@ int by_dtype(int dtype, Args... args) {
     case 0: return F<float>::run(args...);
     case 1: return F<__nv_bfloat16>::run(args...);
     case 2: return F<__half>::run(args...);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-}
-
-// B2s: launch_dq<T, DP> for the runtime dtype code and dq_width(D).
-template <typename... Args>
-int dispatch_dq(int dtype, int D, Args... args) {
-  switch (dtype * 1000 + dq_width(D)) {
-    case 64: return launch_dq<float, 64>(args...);
-    case 128: return launch_dq<float, 128>(args...);
-    case 256: return launch_dq<float, 256>(args...);
-    case 512: return launch_dq<float, 512>(args...);
-    case 1064: return launch_dq<__nv_bfloat16, 64>(args...);
-    case 1128: return launch_dq<__nv_bfloat16, 128>(args...);
-    case 1256: return launch_dq<__nv_bfloat16, 256>(args...);
-    case 1512: return launch_dq<__nv_bfloat16, 512>(args...);
-    case 2064: return launch_dq<__half, 64>(args...);
-    case 2128: return launch_dq<__half, 128>(args...);
-    case 2256: return launch_dq<__half, 256>(args...);
-    case 2512: return launch_dq<__half, 512>(args...);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -1166,11 +1201,10 @@ extern "C" int flash_bwd_dq_simple(int dtype, const void* q, const void* k,
                                    int Sq, int Sk, int D, int causal,
                                    const int64_t* strides, void* stream) {
   if (B <= 0 || H <= 0 || Sq <= 0 || Sk <= 0 || D < 1 ||
-      !grid_ok(B, (Sq + 15) / 16))
+      !grid_ok(B, (Sq + kFwdRows - 1) / kFwdRows))
     return static_cast<int>(cudaErrorInvalidValue);
-  return dispatch_dq(dtype, D, q, k, v, dout, o, lse, delta, dq, B, H, Sq,
-                     Sk, D, causal, strides,
-                     static_cast<cudaStream_t>(stream));
+  return by_dtype<Dq>(dtype, q, k, v, dout, o, lse, delta, dq, B, H, Sq, Sk,
+                      D, causal, strides, static_cast<cudaStream_t>(stream));
 }
 
 // dk and dv, reading the delta that the dq launch wrote.  Same strides.

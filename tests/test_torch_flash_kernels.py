@@ -279,10 +279,9 @@ def test_f16_wgmma_kernels_match_plain_version_on_card(shape, causal):
 def test_simple_family_matches_plain_version_on_card(dtype, shape, causal):
     """The simple CUDA-core family (forward, dq with its delta pre-pass,
     dk/dv) at each dtype and at head dims outside the wgmma kernels'
-    (72, 40, 256, 512; 200 and 640, which run as 128-column slices, and
-    past 512 columns B2s as 512-column slices), and at D = 128 in f32,
-    against the plain versions; f32 to a relative 1e-5 (no tf32
-    anywhere)."""
+    (72, 40, 256, 512; 200 and 640; every D past 128 runs as 128-column
+    slices), and at D = 128 in f32, against the plain versions; f32 to a
+    relative 1e-5 (no tf32 anywhere)."""
     _needs_card()
     D = shape[-1]
     family = tfa.kernel_family(dtype, D)
@@ -333,6 +332,11 @@ _SIMPLE_FAULTS = {
     "fwd_simple_skips_a_kv_tile": (
         "      const float* Pc = Ps + vc * kChunk;",
         "      if (k0 == kFwdKeys) continue;\n", "o"),
+    # B2s skips the dQ += dS K chunks of the second K/V tile of every q
+    # tile past the first.
+    "dq_simple_skips_a_k_tile": (
+        "      const float* dSc = Ps + kc * kChunk;",
+        "      if (k0 == kFwdKeys) continue;\n", "dq"),
     # B3s skips dV and dK of the third q tile of every key tile.
     "dkdv_simple_skips_a_q_tile": (
         "      const int pc = rc * kChunk;",
@@ -429,7 +433,7 @@ def test_simple_check_refuses_planted_fault(fault, tmp_path, monkeypatch):
     """At the f32 path's shape and layout, (4, 8, 2048, 128) causal on
     (B, S, H, D) views, the real simple kernels pass the f32 check
     (|d|_2 / |ref|_2 <= 1e-5) and a copy of flash_simple.cu that drops
-    one tile of B1s or B3s fails it.  The backward runs on the plain
+    one tile of B1s, B2s or B3s fails it.  The backward runs on the plain
     forward's o and lse, so each reading is of one kernel.  Prints both
     readings (run with ``-s``)."""
     _needs_card()
@@ -441,13 +445,15 @@ def test_simple_check_refuses_planted_fault(fault, tmp_path, monkeypatch):
     k, v, do = (_randn_dtype(g, torch.float32, B, H, S, D)
                 for _ in range(3))
     ro, rl = tfa._fwd_reference(q, k, v, True)
-    ref = {"o": ro, "dv": tfa._bwd_reference(q, k, v, ro, rl, do, True)[2]}
+    grads = ("dq", "dk", "dv")
+    ref = dict(zip(grads, tfa._bwd_reference(q, k, v, ro, rl, do, True)),
+               o=ro)
 
     def reading():
         if out == "o":
             return _grad_err(tfa._fwd(q, k, v, True)[0], ref["o"])
-        return _grad_err(tfa._bwd_impl(q, k, v, ro, rl, do, True)[2],
-                         ref["dv"])
+        got = dict(zip(grads, tfa._bwd_impl(q, k, v, ro, rl, do, True)))
+        return _grad_err(got[out], ref[out])
 
     real = reading()
     lib = _planted_library(tmp_path, "flash_simple.cu", anchor, line)
