@@ -68,7 +68,18 @@ through the entry points a user would call, and checks the results:
 14. the llama_440m bf16 train step with its params through
     ``shard_params`` under ``use_mesh(local_mesh())``: the same losses,
     bit for bit, as without a mesh;
-15. one JSON line per kernel, then the result line.
+15. one JSON line per kernel, then the result line;
+16. (run before 15) the MoE family (:func:`moe_ffn_phase`,
+    :func:`moe_train_phase`): the Switch FFN's index dispatch against
+    its one-hot plain version at one llama_moe_1b layer's width (D =
+    1024, H = 4096, E = 8, top-2, capacity 1.25, T = 8 x 2048), output,
+    aux, expert inputs and gradients in f32 and bf16, the drop share and
+    both forms' times; then llama_moe_1b (2.55 B params, 737.7 M active
+    per token) trained at B=8 x S=2048 with the fused AdamW: 2 warm-up
+    and 5 timed steps, finite and falling loss, its aux in the
+    reference's band, the flash launches per step, step time, tok/s, the
+    6 N_active share of the bf16 peak and peak memory against its
+    reckoning; then 2 steps of the optax-chain counterpart.
 
 ``--profile DIR`` adds a torch.profiler pass over the forward, over one
 more round of requests and over one train step, and writes op tables
@@ -150,6 +161,29 @@ TOL_F32_MODEL_REL = 1e-4
 # each of n steps where one flash call rounds once) and f32.
 TOL_RING_BF16_REL = 1e-2
 TOL_RING_F32_REL = 1e-5
+# Phase 16, the Switch FFN at llama_moe_1b's width: the index dispatch
+# against the one-hot form on the same inputs.  f32: each output and
+# gradient as a whole, |got - ref|_2 / |ref|_2; the forms sum the same
+# f32 products in other orders (the one-hot combine over E*C slots, the
+# router's gradient).  bf16: the expert inputs bit for bit (a one-hot
+# product returns each row exactly, 1 * x plus zeros), the output within
+# one bf16 ulp per element (both forms sum the same two exact products
+# in f32, but a tensor core's f32 accumulation may round that sum
+# otherwise than an IEEE add, which moves the bf16 rounding by one ulp at
+# most), and each gradient as a whole within one bf16 ulp, 2**-8
+# relative (the forms round the same f32 values at the same points; the
+# gate gradient's D-long dot product is summed in another order before
+# its bf16 rounding, which can flip that rounding by one ulp).
+TOL_MOE_F32_REL = 1e-5
+TOL_MOE_BF16_ULPS = 1
+TOL_MOE_BF16_GRAD_REL = 2 ** -8
+# Both forms' aux in either dtype: the same f32 probabilities, averaged
+# as a sum over the count or by torch.mean (a multiply by 1/T).
+TOL_MOE_AUX_REL = 1e-6
+# llama_moe_1b train steps (the llama_440m shape) and its active params
+# per token with top-2 of 8 experts, counted from the shapes.
+MOE_WARM, MOE_TIMED = 2, 5
+MOE_ACTIVE_PARAMS = 737_657_856
 # What the kernels are built from, for the kernels line.
 DESIGN = "wgmma+tma, warp-specialised"
 DESIGN_SIMPLE = ("cuda-core f32 fma, 8x8 register micro-tiles fed by "
@@ -1091,6 +1125,250 @@ def mesh_phase(fa, torch, llama):
     return counts
 
 
+def bf16_ulps(got, ref):
+    """Per element, |got - ref| in bf16 ulps of ref (bf16 keeps 8
+    significant bits: the ulp of v = m * 2**e, 0.5 <= |m| < 1, is
+    2**(e - 8); of 0, the least subnormal 2**-133)."""
+    import torch
+
+    ref = ref.float()
+    ulp = torch.ldexp(torch.ones_like(ref), torch.frexp(ref).exponent - 8)
+    ulp = torch.where(ref == 0, torch.full_like(ref, 2.0 ** -133), ulp)
+    return (got.float() - ref).abs() / ulp
+
+
+def moe_ffn_phase(torch, moe, T=TRAIN_B * TRAIN_S, D=1024, H=4096,
+                  device="cuda"):
+    """The Switch FFN of one llama_moe_1b layer (D=1024, H=4096, E=8,
+    top-2, capacity factor 1.25) at T = 8 x 2048 tokens: ``moe_ffn``'s
+    index dispatch (``moe._moe_ffn``) against the one-hot form
+    (``moe._moe_ffn_onehot``) on the same inputs, in f32 and in bf16:
+    the output, the aux, the expert inputs and the gradients of
+    sum(out**2) + 0.01 * aux for x, the router and the three expert
+    weights, to the TOL_MOE_* rules; the drop share; each form's time,
+    forward and forward + backward, in bf16.  Returns the times."""
+    mk = dict(hidden_size=D, intermediate_size=H, n_experts=8, top_k=2,
+              capacity_factor=1.25)
+    B = TRAIN_B
+    names = ["x", "router", *moe.EXPERT_WEIGHTS]
+    times = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        c = moe.MoEConfig(dtype=dtype, **mk)
+        params = moe.init_moe_params(c, seed=90, device=device)
+        g = torch.Generator(device=device)
+        g.manual_seed(91)
+        x = torch.randn((B, T // B, D), generator=g, device=device).to(dtype)
+        forms = {}
+        for form, fn in (("index", moe._moe_ffn),
+                         ("onehot", moe._moe_ffn_onehot)):
+            xx = x.clone().requires_grad_()
+            leaves = {k: params[k].clone().requires_grad_() for k in names[1:]}
+            out, aux, expert_in = fn(xx, leaves, c)
+            grads = torch.autograd.grad(
+                (out.float() ** 2).sum() + 0.01 * aux, [xx, *leaves.values()])
+            forms[form] = (out.detach(), aux.detach(), expert_in.detach(),
+                           dict(zip(names, grads)))
+            del xx, leaves, out, aux, expert_in, grads
+        (out, aux, ein, grads), (out1, aux1, ein1, grads1) = \
+            forms["index"], forms["onehot"]
+        name = str(dtype)[6:]
+        aux_err = abs(aux.item() / aux1.item() - 1)
+        grad_errs = {k: rel_err(grads[k], grads1[k]) for k in names}
+        same = {k: (grads[k] == grads1[k]).float().mean().item()
+                for k in names}
+        ein_same = torch.equal(ein, ein1)
+        if dtype == torch.float32:
+            out_err = rel_err(out, out1)
+            ok = (ein_same and out_err <= TOL_MOE_F32_REL
+                  and all(e <= TOL_MOE_F32_REL for e in grad_errs.values()))
+            out_line = f"out |d|/|ref| {out_err:.3e} (tol {TOL_MOE_F32_REL})"
+            grad_tol = TOL_MOE_F32_REL
+        else:
+            ulps = bf16_ulps(out, out1)
+            out_share = (ulps > 0).float().mean().item()
+            ok = (ein_same and ulps.max().item() <= TOL_MOE_BF16_ULPS
+                  and all(e <= TOL_MOE_BF16_GRAD_REL
+                          for e in grad_errs.values()))
+            out_line = (f"out max {ulps.max().item():.0f} bf16 ulps (tol "
+                        f"{TOL_MOE_BF16_ULPS}), share not bit-equal "
+                        f"{out_share:.2e}")
+            grad_tol = TOL_MOE_BF16_GRAD_REL
+        ok = ok and aux_err <= TOL_MOE_AUX_REL and all(
+            torch.isfinite(t).all() for t in (out, *grads.values()))
+        phase("moe", f"moe_ffn vs one-hot form, {name}, T={T} D={D} H={H} "
+              f"E=8 K=2: expert_in bit-equal {ein_same}; {out_line}; aux "
+              f"{aux.item():.6f} vs {aux1.item():.6f} (rel {aux_err:.1e}, "
+              f"tol {TOL_MOE_AUX_REL}); grads |d|/|ref| " + ", ".join(
+                  f"{k} {e:.2e}" for k, e in grad_errs.items())
+              + f" (tol {grad_tol:.2e}), bit-equal shares " + ", ".join(
+                  f"{k} {v:.4f}" for k, v in same.items())
+              + f"; {'ok' if ok else 'MISMATCH'}")
+        if not ok:
+            fail(f"moe_ffn disagrees with its one-hot form in {name}")
+        del forms, out, out1, ein, ein1, grads, grads1
+        if dtype == torch.bfloat16:
+            xt = x.reshape(T, D)
+            with torch.no_grad():
+                _, _, idx = moe._route(xt, params["router"], c.top_k)
+                pos, per_expert = moe._positions(idx, c.n_experts)
+            cap = moe.capacity(T, c)
+            dropped = (pos >= cap).view(T, c.top_k)
+            phase("moe", f"capacity {cap} slots/expert; assignments per "
+                  f"expert {per_expert.tolist()}; dropped (token, k) share "
+                  f"{dropped.float().mean().item():.4f}, tokens dropped in "
+                  f"both choices {int(dropped.all(1).sum())} (random "
+                  f"weights, seed 90)")
+            for form, fn in (("index", moe._moe_ffn),
+                             ("onehot", moe._moe_ffn_onehot)):
+                def fwd():
+                    with torch.no_grad():
+                        fn(x, params, c)
+
+                xx = x.clone().requires_grad_()
+                leaves = {k: params[k].clone().requires_grad_()
+                          for k in names[1:]}
+
+                def fwd_bwd():
+                    o, a, _ = fn(xx, leaves, c)
+                    torch.autograd.grad((o.float() ** 2).sum() + 0.01 * a,
+                                        [xx, *leaves.values()])
+
+                times[form] = (time_ms(fwd, reps=3, rounds=3),
+                               time_ms(fwd_bwd, reps=3, rounds=3))
+                del xx, leaves
+            phase("moe", "bf16 times, forward / forward+backward: "
+                  + ", ".join(f"{f} {a:.3f} / {b:.3f} ms"
+                              for f, (a, b) in times.items())
+                  + f" ({torch.cuda.get_device_name(0)})")
+        del params, x
+        torch.cuda.empty_cache()
+    return times
+
+
+def moe_memory_reckoning(cfg, n_params, B, S):
+    """Bytes the llama_moe_1b train step should need at its peak, from
+    the shapes, the larger of two moments.  The backward: the state (f32
+    params, gradients and two AdamW moments, 16 B a param), the layer
+    weights' per-layer gradients, which the backward of ``_layers``'
+    unbind holds until it stacks them (4 B a layer param), the layer
+    inputs that remat="full" keeps (bf16), one layer's recompute at a
+    time (its MoE buffers dominate: the (E, C, H) products h, u,
+    silu(h), silu(h)*u and their gradients in bf16, the (E, C, D)
+    buffers and the (T, K, D) rows) and the head (bf16 logits, their f32
+    copy, the f32 and bf16 gradients).  The fused AdamW update: the state
+    and three f32 temporaries of the params' size (the clipped
+    gradients, the denominator and the direction), 28 B a param.
+    Returns (state bytes, backward bytes, update bytes)."""
+    T, D, E = B * S, cfg.hidden_size, cfg.moe_experts
+    C = round(T * cfg.moe_top_k / E * cfg.moe_capacity_factor)
+    layer_params = n_params - cfg.vocab_size * D - D
+    state = 16 * n_params
+    saved = 2 * cfg.n_layers * T * D
+    one_layer = (2 * 8 * E * C * cfg.intermediate_size
+                 + 2 * 4 * E * C * D + 6 * T * cfg.moe_top_k * D)
+    head = T * cfg.vocab_size * (2 + 4 + 4 + 2)
+    backward = state + 4 * layer_params + saved + one_layer + head
+    return state, backward, state + 12 * n_params
+
+
+def moe_train_phase(fa, torch, llama, profile_dir=None):
+    """llama_moe_1b trained on one card at full width and depth:
+    init_train_state / make_train_step(fused=True), bf16 compute with f32
+    params and moments, B=8 x S=2048, the preset's remat ("full").  2
+    warm-up and 5 timed steps, the launch counts set to 0 before each
+    timed step: finite and falling loss, each flash kernel's launches
+    per step (forward twice a layer under "full": the forward and the
+    recompute), the aux of a forward in the reference's band (0.5 to 3
+    times n_layers), step time, tok/s, the 6 N_active share of the bf16
+    peak, peak memory against :func:`moe_memory_reckoning`; then 2 steps
+    of the optax-chain counterpart from the same state, whose losses must
+    match.  Returns the launches of one timed step."""
+    cfg = llama.LlamaConfig.llama_moe_1b()
+    g = torch.Generator(device="cuda")
+    g.manual_seed(92)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (TRAIN_B, TRAIN_S),
+                                     generator=g, device="cuda")}
+    torch.cuda.reset_peak_memory_stats()
+    state = llama.init_train_state(cfg, seed=0, fused=True)
+    n_params = llama.param_count(state["params"])
+    with torch.no_grad():
+        _, aux = llama.forward(state["params"], batch["tokens"][:2], cfg,
+                               return_aux=True)
+    aux = aux.item()
+    step = llama.make_train_step(cfg, fused=True)
+    metrics, per_step = [], []
+    for _ in range(MOE_WARM):
+        state, m = step(state, batch)
+        metrics.append(m)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(MOE_TIMED):
+        fa.reset_launch_counts()
+        state, m = step(state, batch)
+        per_step.append(launched(fa))
+        metrics.append(m)
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / MOE_TIMED
+    peak = torch.cuda.max_memory_allocated()
+    losses = [m["loss"].item() for m in metrics]
+    gnorms = [m["grad_norm"].item() for m in metrics]
+    tok_s = TRAIN_B * (TRAIN_S - 1) / step_s
+    state_b, bwd_b, update_b = moe_memory_reckoning(cfg, n_params,
+                                                     TRAIN_B, TRAIN_S)
+    phase("moe", f"llama_moe_1b ({n_params} params, {MOE_ACTIVE_PARAMS} "
+          f"active a token) fused AdamW remat_policy={cfg.remat_policy!r} "
+          f"B={TRAIN_B} S={TRAIN_S}: step {step_s * 1e3:.1f} ms (mean of "
+          f"{MOE_TIMED} after {MOE_WARM} warm-up), {tok_s:.0f} tok/s "
+          f"(B*(S-1) per step), 6*N_active*tok/s = "
+          f"{6 * MOE_ACTIVE_PARAMS * tok_s / 1e12:.1f} TFLOP/s = "
+          f"{100 * 6 * MOE_ACTIVE_PARAMS * tok_s / PEAK_BF16_FLOPS:.1f}% of "
+          f"the 989 TFLOP/s bf16 peak (not counting attention, remat or "
+          f"capacity padding), peak memory {peak / 1e9:.2f} GB against "
+          f"the reckoning {max(bwd_b, update_b) / 1e9:.2f} GB (backward "
+          f"{bwd_b / 1e9:.2f} GB, fused update {update_b / 1e9:.2f} GB; "
+          f"{state_b / 1e9:.2f} GB of f32 params, gradients and moments)")
+    phase("moe", "losses " + " ".join(f"{x:.4f}" for x in losses)
+          + "; grad norms " + " ".join(f"{x:.3f}" for x in gnorms)
+          + f"; aux of a B=2 forward {aux:.4f} (band {0.5 * cfg.n_layers}"
+          f" to {3.0 * cfg.n_layers})")
+    fwd_per_layer = 1 if cfg.remat_policy in ("attn", "attn_ffn") else 2
+    want = {"flash_fwd": fwd_per_layer * cfg.n_layers,
+            "flash_bwd_dq": cfg.n_layers, "flash_bwd_dkdv": cfg.n_layers}
+    phase("moe", f"launches per timed step: {per_step[0]} (expected "
+          f"{want}; all {MOE_TIMED} steps equal: "
+          f"{all(p == per_step[0] for p in per_step)})")
+    if not all(math.isfinite(x) for x in losses + gnorms + [aux]):
+        fail("llama_moe_1b training produced a non-finite loss or norm")
+    if not losses[-1] < losses[0]:
+        fail(f"llama_moe_1b loss did not fall: {losses}")
+    if not 0.5 * cfg.n_layers < aux < 3.0 * cfg.n_layers:
+        fail(f"llama_moe_1b aux {aux} outside the reference's band")
+    if any(p != want for p in per_step):
+        fail(f"flash kernels launched {per_step} per step, expected {want}")
+    if profile_dir:
+        profile_run(lambda: step(state, batch), "train_step_moe",
+                    profile_dir)
+    del state, step, metrics
+    torch.cuda.empty_cache()
+    state = llama.init_train_state(cfg, seed=0)
+    step = llama.make_train_step(cfg)
+    chain = []
+    for _ in range(CHAIN_STEPS):
+        state, m = step(state, batch)
+        chain.append(m["loss"].item())
+    diffs = [abs(a / b - 1) for a, b in zip(chain, losses)]
+    ok = max(diffs) <= TOL_CHAIN_LOSS_REL
+    phase("moe", f"optax-chain counterpart, {CHAIN_STEPS} steps from the "
+          f"same state: losses {chain} vs fused {losses[:CHAIN_STEPS]} "
+          f"(rel diff {max(diffs):.2e}, tol {TOL_CHAIN_LOSS_REL}) "
+          + ("ok" if ok else "MISMATCH"))
+    if not ok:
+        fail("the chain and fused AdamW steps disagree on llama_moe_1b")
+    del state, step, batch
+    torch.cuda.empty_cache()
+    return per_step[-1]
+
+
 def main() -> None:
     import torch
 
@@ -1516,10 +1794,17 @@ def main() -> None:
     if mesh_launches != want:
         fail(f"the mesh train steps launched {mesh_launches}, "
              f"expected {want}")
+    # 16. The MoE family: the Switch FFN against its one-hot form, then
+    # llama_moe_1b trained on the card.
+    from ray_tpu_torch.models import moe
+
+    moe_ffn_phase(torch, moe)
+    moe_launches = moe_train_phase(fa, torch, llama, profile_dir)
     phase("launches", f"ring (bf16 chunk schedule) {ring_launches['bfloat16']}"
           f", ring f32 {ring_launches['float32']}, f32 model path "
           f"{c1_launches['float32']}, f16 model path "
-          f"{c1_launches['float16']}, mesh {mesh_launches}")
+          f"{c1_launches['float16']}, mesh {mesh_launches}, llama_moe_1b "
+          f"train step {moe_launches}")
 
     # 15. Kernels, then the result.
     kernels = [{

@@ -42,6 +42,7 @@ from torch.profiler import record_function
 from torch.utils.checkpoint import checkpoint
 
 from ..core.device import DeviceLike, check_on, resolve_device, to_device
+from . import moe
 from ..parallel.mesh import mesh_shape, mesh_size
 from ..parallel.sharding import (current_mesh, logical_mesh_axes,
                                  suppress_constraints,
@@ -85,14 +86,15 @@ class LlamaConfig:
     tie_embeddings: bool = False
     # GPipe microbatches over the mesh's pipe axis (0: no pipeline).
     pipeline_microbatches: int = 0
-    # Not ported yet; a non-zero value raises (ROADMAP queue A).
+    # >0 replaces every layer's dense FFN with a GShard/Switch MoE FFN
+    # (models/moe.py) of this many experts, split over the mesh's expert
+    # axis; the Switch aux loss enters the loss scaled by moe_aux_weight.
     moe_experts: int = 0
+    moe_top_k: int = 2
+    moe_capacity_factor: float = 1.25
+    moe_aux_weight: float = 0.01
 
     def __post_init__(self):
-        if self.moe_experts > 0:
-            raise NotImplementedError(
-                "moe_experts > 0: MoE is not ported yet (ROADMAP queue A, "
-                "'MoE')")
         if self.attention_impl not in ("dot", "flash", "ring"):
             raise ValueError(
                 f"unknown attention_impl {self.attention_impl!r}")
@@ -112,6 +114,26 @@ class LlamaConfig:
                     n_kv_heads=2, head_dim=16, intermediate_size=128,
                     max_seq_len=128, rope_theta=10000.0, remat=False,
                     tie_embeddings=True)
+        base.update(kw)
+        return cls(**base)
+
+    @classmethod
+    def moe_debug(cls, **kw) -> "LlamaConfig":
+        """Tiny MoE config (expert-parallel tests on the CPU)."""
+        base = dict(moe_experts=4, moe_top_k=2)
+        base.update(kw)
+        return cls.debug(**base)
+
+    @classmethod
+    def llama_moe_1b(cls, **kw) -> "LlamaConfig":
+        """Switch-style MoE model: 8 experts, top-2, over the llama_440m
+        trunk.  2,549,597,184 params (2,415,919,104 in the experts),
+        737,657,856 active per token (counted from the shapes)."""
+        base = dict(vocab_size=32000, hidden_size=1024, n_layers=24,
+                    n_heads=8, n_kv_heads=8, head_dim=128,
+                    intermediate_size=4096, max_seq_len=2048,
+                    rope_theta=10000.0, tie_embeddings=True,
+                    attention_impl="flash", moe_experts=8, moe_top_k=2)
         base.update(kw)
         return cls(**base)
 
@@ -163,6 +185,19 @@ class LlamaConfig:
 
 def param_logical_axes(config: LlamaConfig) -> Dict[str, Any]:
     """Tree (matching init_params) of per-dim logical axis names."""
+    if config.moe_experts > 0:
+        ffn_axes = {
+            "router": ("layers", None, "expert"),
+            "w_gate": ("layers", "expert", "embed", "mlp"),
+            "w_up": ("layers", "expert", "embed", "mlp"),
+            "w_down": ("layers", "expert", "mlp", "embed"),
+        }
+    else:
+        ffn_axes = {
+            "w_gate": ("layers", "embed", "mlp"),
+            "w_up": ("layers", "embed", "mlp"),
+            "w_down": ("layers", "mlp", "embed"),
+        }
     axes = {
         "embed_tokens": ("vocab", "embed"),
         "layers": {
@@ -172,9 +207,7 @@ def param_logical_axes(config: LlamaConfig) -> Dict[str, Any]:
             "wv": ("layers", "embed", "kv_heads"),
             "wo": ("layers", "heads", "embed"),
             "mlp_norm": ("layers", None),
-            "w_gate": ("layers", "embed", "mlp"),
-            "w_up": ("layers", "embed", "mlp"),
-            "w_down": ("layers", "mlp", "embed"),
+            **ffn_axes,
         },
         "final_norm": (None,),
     }
@@ -191,45 +224,71 @@ def init_dense(gen: torch.Generator, shape, fan_in: int,
     return (w * fan_in ** -0.5).to(dtype)
 
 
+def _param_specs(config: LlamaConfig) -> Dict[str, Any]:
+    """Each leaf's shape and init, in the order init_params draws them:
+    ``(shape, fan_in)`` for a truncated-normal weight, ``(shape, None)``
+    for a norm (ones)."""
+    c = config
+    L, H, I = c.n_layers, c.hidden_size, c.intermediate_size
+    if c.moe_experts > 0:
+        E = c.moe_experts
+        ffn = {"router": ((L, H, E), H),
+               "w_gate": ((L, E, H, I), H),
+               "w_up": ((L, E, H, I), H),
+               "w_down": ((L, E, I, H), I)}
+    else:
+        ffn = {"w_gate": ((L, H, I), H),
+               "w_up": ((L, H, I), H),
+               "w_down": ((L, I, H), I)}
+    specs = {
+        "embed_tokens": ((c.vocab_size, H), H),
+        "layers": {
+            "attn_norm": ((L, H), None),
+            "wq": ((L, H, c.q_dim), H),
+            "wk": ((L, H, c.kv_dim), H),
+            "wv": ((L, H, c.kv_dim), H),
+            "wo": ((L, c.q_dim, H), c.q_dim),
+            "mlp_norm": ((L, H), None),
+            **ffn,
+        },
+        "final_norm": ((H,), None),
+    }
+    if not c.tie_embeddings:
+        specs["lm_head"] = ((H, c.vocab_size), H)
+    return specs
+
+
+def _map_specs(fn, specs):
+    return {k: _map_specs(fn, v) if isinstance(v, dict) else fn(*v)
+            for k, v in specs.items()}
+
+
 def init_params(config: LlamaConfig, seed: int = 0,
                 dtype: torch.dtype = torch.float32,
                 device: DeviceLike = None) -> Params:
     """Stacked-layer params (truncated-normal fan-in init, norms at 1),
-    same keys and shapes as the JAX ``init_params``.  Random numbers come
-    from a ``torch.Generator`` seeded with ``seed``; they differ from
-    ``jax.random``'s, so parity tests carry weights across with
-    ``convert.from_jax_params``."""
-    c = config
+    same keys and shapes as the JAX ``init_params`` (with
+    ``moe_experts > 0``, each layer's router ``(H, E)`` and experts
+    ``(E, H, I)`` / ``(E, I, H)`` in place of the dense FFN).  Random
+    numbers come from a ``torch.Generator`` seeded with ``seed``; they
+    differ from ``jax.random``'s, so parity tests carry weights across
+    with ``convert.from_jax_params``."""
     device = resolve_device(device)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
 
-    def dense(shape, fan_in):
+    def init(shape, fan_in):
+        if fan_in is None:
+            return torch.ones(shape, dtype=dtype, device=device)
         return init_dense(gen, shape, fan_in, dtype, device)
 
-    def ones(shape):
-        return torch.ones(shape, dtype=dtype, device=device)
+    return _map_specs(init, _param_specs(config))
 
-    L, H = c.n_layers, c.hidden_size
-    params = {
-        "embed_tokens": dense((c.vocab_size, H), H),
-        "layers": {
-            "attn_norm": ones((L, H)),
-            "wq": dense((L, H, c.q_dim), H),
-            "wk": dense((L, H, c.kv_dim), H),
-            "wv": dense((L, H, c.kv_dim), H),
-            "wo": dense((L, c.q_dim, H), c.q_dim),
-            "mlp_norm": ones((L, H)),
-            "w_gate": dense((L, H, c.intermediate_size), H),
-            "w_up": dense((L, H, c.intermediate_size), H),
-            "w_down": dense((L, c.intermediate_size, H),
-                            c.intermediate_size),
-        },
-        "final_norm": ones((H,)),
-    }
-    if not c.tie_embeddings:
-        params["lm_head"] = dense((H, c.vocab_size), H)
-    return params
+
+def param_shapes(config: LlamaConfig) -> Params:
+    """The params' tree as meta tensors: shapes only, nothing allocated."""
+    return _map_specs(lambda shape, _: torch.empty(shape, device="meta"),
+                      _param_specs(config))
 
 
 def param_count(params: Params) -> int:
@@ -464,29 +523,73 @@ def _attn_out_mlp(x: torch.Tensor, attn: torch.Tensor,
     return _ffn_down(x, ffn_act, layer, config)
 
 
+def _attn_out_moe(x: torch.Tensor, attn: torch.Tensor,
+                  layer: Dict[str, torch.Tensor], config: LlamaConfig,
+                  region=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """MoE twin of :func:`_attn_out_mlp`: the Switch FFN
+    (``models/moe.py``) in place of the dense one; returns (x, the
+    layer's aux loss).  ``region``: the manual region's layout on a mesh
+    (``parallel.spmd.Region``), None on one device."""
+    c = config
+    B, S, _ = x.shape
+    dt = c.dtype
+    x = x + matmul(attn.reshape(B, S, c.q_dim), layer["wo"].to(dt))
+    x = with_logical_constraint(x, "batch", "seq", None)
+    h = rms_norm(x, layer["mlp_norm"], c.norm_eps)
+    mcfg = moe.MoEConfig(hidden_size=c.hidden_size,
+                         intermediate_size=c.intermediate_size,
+                         n_experts=c.moe_experts, top_k=c.moe_top_k,
+                         capacity_factor=c.moe_capacity_factor, dtype=dt)
+    ff, aux = moe.moe_ffn(h, {k: layer[k] for k in ("router",
+                                                    *moe.EXPERT_WEIGHTS)},
+                          mcfg, region)
+    x = x + ff.to(x.dtype)
+    return with_logical_constraint(x, "batch", "seq", None), aux
+
+
 def decoder_layer(x, layer, sin, cos, positions, config, attention_fn):
     q, k, v = _qkv_rope(x, layer, sin, cos, config)
     attn = attention_fn(q, k, v, positions)
     return _attn_out_mlp(x, attn, layer, config)
 
 
-def _remat_layer(x, layer, sin, cos, positions, config, attention_fn):
-    """``decoder_layer`` under ``config.remat_policy``, each checkpointed
-    segment recomputed in the backward (``torch.utils.checkpoint``,
-    non-reentrant).  "attn"/"attn_ffn" on the flash path checkpoint the
-    parts before and after the flash call and leave the call between
-    them: ``_FlashCore`` keeps its five residuals in its ctx, which is
-    what the reference's policy saves by name, so the backward never
-    re-runs the flash forward.  (Selective checkpointing alone cannot do
-    this: it does not see inside an autograd Function.)  "attn_ffn" also
-    keeps ``silu(gate)*up``: the down projection runs outside any
-    segment, so autograd saves its input.  Without flash there is no
-    flash residual to keep: "attn" is then "full", as in the reference,
-    and so is "attn_ffn", which recomputes ``silu(gate)*up`` too (the
-    reference keeps it; the math is the same)."""
+def decoder_layer_moe(x, layer, sin, cos, positions, config, attention_fn,
+                      region=None):
+    """A MoE layer: returns (x, the layer's aux loss)."""
+    q, k, v = _qkv_rope(x, layer, sin, cos, config)
+    attn = attention_fn(q, k, v, positions)
+    return _attn_out_moe(x, attn, layer, config, region)
+
+
+def _remat_layer(x, layer, sin, cos, positions, config, attention_fn,
+                 region=None):
+    """``decoder_layer`` (``decoder_layer_moe`` with ``moe_experts > 0``,
+    which also returns the layer's aux) under ``config.remat_policy``,
+    each checkpointed segment recomputed in the backward
+    (``torch.utils.checkpoint``, non-reentrant).  "attn"/"attn_ffn" on
+    the flash path checkpoint the parts before and after the flash call
+    and leave the call between them: ``_FlashCore`` keeps its five
+    residuals in its ctx, which is what the reference's policy saves by
+    name, so the backward never re-runs the flash forward.  (Selective
+    checkpointing alone cannot do this: it does not see inside an
+    autograd Function.)  "attn_ffn" also keeps ``silu(gate)*up``: the
+    down projection runs outside any segment, so autograd saves its
+    input.  Without flash there is no flash residual to keep: "attn" is
+    then "full", as in the reference, and so is "attn_ffn", which
+    recomputes ``silu(gate)*up`` too (the reference keeps it; the math
+    is the same).
+
+    A MoE layer takes every policy: "full" recomputes it whole; "dots"
+    keeps the outputs of its aten.mm products (the attention projections
+    and the router's logits) and "dots_saveable" those of aten.bmm too
+    (the three expert GEMMs), while the routing, dispatch and combine are
+    recomputed; "attn" keeps the flash residuals and checkpoints the
+    segments around the call; "attn_ffn" is "attn", since the MoE block
+    has no ``ffn_act`` for the reference to save."""
     c = config
     policy = c.remat_policy
     context_fn = _remat_policy(c)
+    moe_layer = c.moe_experts > 0
 
     def ckpt(fn, *args):
         if context_fn is None:
@@ -497,12 +600,33 @@ def _remat_layer(x, layer, sin, cos, positions, config, attention_fn):
     if policy in ("attn", "attn_ffn") and c.attention_impl == "flash":
         q, k, v = ckpt(_qkv_rope, x, layer, sin, cos, c)
         attn = attention_fn(q, k, v, positions)
+        if moe_layer:
+            return ckpt(_attn_out_moe, x, attn, layer, c, region)
         if policy == "attn":
             return ckpt(_attn_out_mlp, x, attn, layer, c)
         x, ffn_act = ckpt(_attn_out_act, x, attn, layer, c)
         return _ffn_down(x, ffn_act, layer, c)
+    if moe_layer:
+        return ckpt(decoder_layer_moe, x, layer, sin, cos, positions, c,
+                    attention_fn, region)
     return ckpt(decoder_layer, x, layer, sin, cos, positions, c,
                 attention_fn)
+
+
+def _run_layers(layer_fn, x, layers, sin, cos, positions, config,
+                attention_fn, region=None):
+    """Every layer in turn; returns (x, the aux loss summed over the
+    layers: 0.0 for a dense model)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for layer in layers:
+        if config.moe_experts > 0:
+            x, layer_aux = layer_fn(x, layer, sin, cos, positions, config,
+                                    attention_fn, region)
+            aux = aux + layer_aux
+        else:
+            x = layer_fn(x, layer, sin, cos, positions, config,
+                         attention_fn)
+    return x, aux
 
 
 # ---------------------------------------------------------------------------
@@ -516,14 +640,17 @@ def _tokens_on(tokens, params: Params, device: DeviceLike) -> torch.Tensor:
 
 
 def forward(params: Params, tokens, config: LlamaConfig,
-            positions=None, device: DeviceLike = None) -> torch.Tensor:
+            positions=None, device: DeviceLike = None,
+            return_aux: bool = False):
     """Logits (B, S, V) for next-token prediction.  tokens: (B, S) ints.
     Runs on ``device`` (the card unless ``"cpu"``); params must be there.
     Differentiable: with ``config.remat``, a call whose layer weights
     require grad runs each layer under the remat policy
     (:func:`_remat_layer`).  Under ``use_mesh`` of more than one device
     every rank passes the same tokens and gets the same logits
-    (:func:`_forward_spmd`)."""
+    (:func:`_forward_spmd`).  With ``return_aux=True`` returns (logits,
+    aux), aux the MoE load-balancing loss summed over the layers (0.0 for
+    a dense model)."""
     c = config
     if positions is not None and c.attention_impl != "dot":
         # flash/ring mask on the raw row index, not positions — packed or
@@ -543,7 +670,7 @@ def forward(params: Params, tokens, config: LlamaConfig,
         positions = torch.as_tensor(positions, device=tokens.device)
         attn_positions = positions
     attention_fn = _get_attention_fn(c)
-    layer_fn = decoder_layer
+    layer_fn = decoder_layer_moe if c.moe_experts > 0 else decoder_layer
     if c.remat:
         _remat_policy(c)  # an unknown policy raises before any work
         # Only a differentiated call has anything to save or recompute;
@@ -553,18 +680,20 @@ def forward(params: Params, tokens, config: LlamaConfig,
             layer_fn = _remat_layer
     mesh = current_mesh()
     if mesh is not None and mesh_size(mesh) > 1:
-        return _forward_spmd(params, tokens, positions, attn_positions,
-                             custom_positions, c, mesh, attention_fn,
-                             layer_fn)
-    emb = with_logical_constraint(params["embed_tokens"].to(c.dtype),
-                                  "vocab", None)
-    x = with_logical_constraint(emb[tokens], "batch", "seq", None)
-    sin, cos = rope_table(positions, c.head_dim, c.rope_theta)
-    for layer in _layers(params):
-        x = layer_fn(x, layer, sin, cos, attn_positions, c, attention_fn)
-    x = rms_norm(x, params["final_norm"], c.norm_eps)
-    logits = matmul(x, _head(params, c))
-    return with_logical_constraint(logits, "batch", "seq", "vocab")
+        logits, aux = _forward_spmd(params, tokens, positions,
+                                    attn_positions, custom_positions, c,
+                                    mesh, attention_fn, layer_fn)
+    else:
+        emb = with_logical_constraint(params["embed_tokens"].to(c.dtype),
+                                      "vocab", None)
+        x = with_logical_constraint(emb[tokens], "batch", "seq", None)
+        sin, cos = rope_table(positions, c.head_dim, c.rope_theta)
+        x, aux = _run_layers(layer_fn, x, _layers(params), sin, cos,
+                             attn_positions, c, attention_fn)
+        x = rms_norm(x, params["final_norm"], c.norm_eps)
+        logits = with_logical_constraint(matmul(x, _head(params, c)),
+                                         "batch", "seq", "vocab")
+    return (logits, aux) if return_aux else logits
 
 
 def _forward_spmd(params, tokens, positions, attn_positions,
@@ -576,17 +705,27 @@ def _forward_spmd(params, tokens, positions, attn_positions,
     (``parallel.spmd.gather_param``; their gradients are summed over the
     batch axes and re-sharded), runs the layers through the GPipe
     schedule when ``pipeline_microbatches > 0`` and the mesh has a pipe
-    axis, and gathers the logits back whole on every rank."""
-    from ..parallel.spmd import gather_param, gather_slices, local_slice
+    axis, and gathers the logits back whole on every rank.  Returns
+    (logits, aux).
+
+    A MoE layer's experts stay split over the expert axes: each rank
+    gathers only its block of them (dim 1 of the stacked weights) and
+    runs the Switch FFN in the region (``moe.moe_ffn`` with a
+    ``Region``), which sums the expert buffer over the batch axes, so
+    the experts run replicated over those axes and their gradients are
+    not summed over them.  Over ``seq`` x is whole outside attention and
+    the FFN runs replicated."""
+    from ..parallel.spmd import (Region, gather_param, gather_slices,
+                                 local_slice)
 
     c = config
     sizes = mesh_shape(mesh)
     batch_axes = [a for a in logical_mesh_axes("batch")
                   if sizes.get(a, 1) > 1]
-    moe = c.moe_experts > 0
+    is_moe = c.moe_experts > 0
     pipelined = c.pipeline_microbatches > 0 and sizes.get("pipe", 1) > 1
     if pipelined:
-        if moe:
+        if is_moe:
             raise NotImplementedError(
                 "MoE layers inside pipeline stages are not supported "
                 "yet (the GPipe schedule carries no aux accumulator); "
@@ -603,6 +742,18 @@ def _forward_spmd(params, tokens, positions, attn_positions,
 
     def gather(p):
         return gather_param(p, mesh, batch_axes)
+
+    region = None
+    if is_moe:
+        expert_axes = [a for a in logical_mesh_axes("expert")
+                       if sizes.get(a, 1) > 1]
+        region = Region(mesh, tuple(batch_axes), tuple(expert_axes))
+
+    def gather_layer_weight(name, w):
+        if is_moe and name in moe.EXPERT_WEIGHTS:
+            return gather_param(w, mesh, [],
+                                keep={a: 1 for a in region.expert_axes})
+        return gather(w)
 
     with suppress_constraints():
         tok = local_slice(tokens, mesh, batch_axes, 0)
@@ -626,33 +777,40 @@ def _forward_spmd(params, tokens, positions, attn_positions,
                                 num_microbatches=c.pipeline_microbatches,
                                 batch_axes=batch_axes)
         else:
-            stack = {k: gather(w) for k, w in params["layers"].items()}
-            for layer in _layers({"layers": stack}):
-                x = layer_fn(x, layer, sin, cos, attn_pos, c, attention_fn)
+            stack = {k: gather_layer_weight(k, w)
+                     for k, w in params["layers"].items()}
+            x, aux = _run_layers(layer_fn, x, _layers({"layers": stack}),
+                                 sin, cos, attn_pos, c, attention_fn,
+                                 region)
         x = rms_norm(x, gather(params["final_norm"]), c.norm_eps)
         head = (emb.to(c.dtype).T if c.tie_embeddings
                 else gather(params["lm_head"]).to(c.dtype))
         logits = matmul(x, head)
-    return gather_slices(logits, mesh, batch_axes, 0)
+    if pipelined:
+        aux = torch.zeros((), dtype=torch.float32, device=logits.device)
+    return gather_slices(logits, mesh, batch_axes, 0), aux
 
 
 def loss_fn(params: Params, batch: Dict[str, Any], config: LlamaConfig,
             device: DeviceLike = None) -> torch.Tensor:
-    """Mean next-token cross-entropy.  batch: tokens (B, S), optional
-    positions and loss_mask (B, S)."""
+    """Mean next-token cross-entropy, plus ``moe_aux_weight`` times the
+    per-layer mean of the MoE aux loss for a MoE model.  batch: tokens
+    (B, S), optional positions and loss_mask (B, S)."""
     tokens = _tokens_on(batch["tokens"], params, device)
     positions = batch.get("positions")
     if positions is None:
         # Full-length forward, then drop the last position's logits (the
         # reference keeps S a multiple of the flash tile this way).
-        logits = forward(params, tokens, config, device=tokens.device)
+        logits, aux = forward(params, tokens, config, device=tokens.device,
+                              return_aux=True)
         logits = logits[:, :-1]
     else:
         # Packed/offset positions: slice to S-1 so the last raw token
         # never becomes a key.
         positions = torch.as_tensor(positions, device=tokens.device)
-        logits = forward(params, tokens[:, :-1], config,
-                         positions=positions[:, :-1], device=tokens.device)
+        logits, aux = forward(params, tokens[:, :-1], config,
+                              positions=positions[:, :-1],
+                              device=tokens.device, return_aux=True)
     targets = tokens[:, 1:]
     logits = logits.float()
     logz = torch.logsumexp(logits, dim=-1)
@@ -660,9 +818,14 @@ def loss_fn(params: Params, batch: Dict[str, Any], config: LlamaConfig,
     nll = logz - gold
     mask = batch.get("loss_mask")
     if mask is None:
-        return nll.mean()
-    mask = torch.as_tensor(mask, device=tokens.device)[:, 1:].float()
-    return (nll * mask).sum() / mask.sum().clamp_min(1.0)
+        ce = nll.mean()
+    else:
+        mask = torch.as_tensor(mask, device=tokens.device)[:, 1:].float()
+        ce = (nll * mask).sum() / mask.sum().clamp_min(1.0)
+    if config.moe_experts > 0:
+        # The per-layer mean, so the weight does not depend on depth.
+        ce = ce + config.moe_aux_weight * aux / config.n_layers
+    return ce
 
 
 # ---------------------------------------------------------------------------
@@ -895,6 +1058,16 @@ def dequantize_kv_blocks(stored: torch.Tensor, scale: torch.Tensor,
     return (stored.float() * scale[..., None]).to(out_dtype)
 
 
+def check_kv_cache_decode(config: LlamaConfig) -> None:
+    """The KV-cache paths (slot and paged) serve dense models only, as
+    the reference's ``forward_with_cache``; they refuse a MoE config
+    before any work."""
+    if config.moe_experts > 0:
+        raise NotImplementedError(
+            "KV-cache decode for MoE models is not implemented yet; "
+            "serve with a dense config")
+
+
 @torch.no_grad()
 def prefill_forward(params: Params, tokens: torch.Tensor,
                     lengths: torch.Tensor, config: LlamaConfig):
@@ -906,6 +1079,7 @@ def prefill_forward(params: Params, tokens: torch.Tensor,
     ks/vs (L, G, P, Hkv, D).  K/V rows past a prompt's length are
     garbage that decode overwrites before it first attends them."""
     c = config
+    check_kv_cache_decode(c)
     G, P = tokens.shape
     dt = c.dtype
     x = params["embed_tokens"].to(dt)[tokens]
@@ -951,6 +1125,7 @@ def forward_with_cache(params: Params, tokens: torch.Tensor,
     clamped so the T rows fit, as dynamic_update_slice does).  Writes the
     cache IN PLACE and returns (logits (B, T, V), cache)."""
     c = config
+    check_kv_cache_decode(c)
     B, T = tokens.shape
     dt = c.dtype
     S = cache["k"].shape[2]

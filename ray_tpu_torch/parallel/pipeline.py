@@ -57,7 +57,8 @@ def pipeline_layers(layer_fn: Callable[[torch.Tensor, Dict[str, torch.Tensor]],
     idx = axis_index(mesh, pipe_axis)
     last = n_pipe - 1
     names = list(stacked_params)
-    local = [gather_param(stacked_params[k], mesh, batch_axes, pipe_axis)
+    local = [gather_param(stacked_params[k], mesh, batch_axes,
+                          keep={pipe_axis: 0})
              for k in names]
     layers = [dict(zip(names, ws))
               for ws in zip(*[w.unbind(0) for w in local])]

@@ -25,7 +25,10 @@ the gradients are the reference's:
   part;
 - :func:`ppermute` sends to the next rank of an axis's ring and
   receives from the previous one; its backward is the reverse
-  permutation (JAX's transpose rule).
+  permutation (JAX's transpose rule);
+- :func:`rank_offset` sums a value over the ranks before this one (an
+  all-gather, no gradient): where a rank's block of a global order
+  starts, as the MoE FFN's expert positions need.
 
 Every rank must run the same collectives in the same order, so code in
 a region keeps each rank's graph the same shape: a value a rank does not
@@ -35,7 +38,7 @@ need is multiplied by zero, not dropped.
 from __future__ import annotations
 
 import math
-from typing import List, Sequence
+from typing import Any, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -206,38 +209,63 @@ def ppermute(x: torch.Tensor, mesh, axis: str):
 
 
 def gather_param(p: torch.Tensor, mesh, reduce_axes: Sequence[str],
-                 stage_axis: str = None) -> torch.Tensor:
+                 keep: Optional[Dict[str, int]] = None) -> torch.Tensor:
     """A parameter as the local tensor a manual region computes with:
-    whole, or, with ``stage_axis``, this rank's block of its leading
-    (stacked-layer) dim over that axis.  Its gradient is summed over
-    ``reduce_axes`` (the axes the batch is split over) and, with
-    ``stage_axis``, lands in the stage's block.
+    whole, or, for each ``{mesh axis: dim}`` of ``keep``, this rank's
+    block of that dim over that axis (the stacked-layer dim 0 over
+    ``pipe`` in the GPipe schedule, the expert dim 1 over ``expert`` in
+    the MoE FFN).  Its gradient is summed over ``reduce_axes`` (the axes
+    the batch is split over, when the param meets the rank's own rows)
+    and lands in the kept blocks.
 
     A DTensor is gathered from its shards (DTensor's redistribute; the
     backward reduces and re-shards to the param's own placements).  A
     plain tensor is a replicated param: it is used as it is and its
-    gradient is summed over the same axes (and over the stage axis,
-    whose other ranks fill the other blocks)."""
+    gradient is summed over the same axes (and over the kept axes, whose
+    other ranks fill the other blocks)."""
     from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
     sizes = mesh_shape(mesh)
     reduce_axes = _active(mesh, reduce_axes)
-    stage = stage_axis if stage_axis and sizes.get(stage_axis, 1) > 1 \
-        else None
+    keep = {a: d for a, d in (keep or {}).items() if sizes.get(a, 1) > 1}
     if isinstance(p, DTensor):
         names = list(sizes)
         target = [Replicate() for _ in names]
         grads = [Replicate() for _ in names]
-        if stage:
-            target[names.index(stage)] = Shard(0)
-            grads[names.index(stage)] = Shard(0)
+        for a, d in keep.items():
+            target[names.index(a)] = Shard(d)
+            grads[names.index(a)] = Shard(d)
         for a in reduce_axes:
             grads[names.index(a)] = Partial()
         return p.redistribute(mesh, target).to_local(grad_placements=grads)
-    p = sum_grads(p, mesh, reduce_axes + ([stage] if stage else []))
-    if stage:
-        p = _slice(p, mesh, [stage], 0)
+    p = sum_grads(p, mesh, reduce_axes + list(keep))
+    for a, d in keep.items():
+        p = _slice(p, mesh, [a], d)
     return p
+
+
+def rank_offset(x: torch.Tensor, mesh, axes: Sequence[str]) -> torch.Tensor:
+    """The sum of ``x`` over the ranks that come before this one in the
+    order of ``axes`` (the first axis major, as :func:`local_slice`
+    splits): where this rank's block starts, counted in ``x``.  One
+    all-gather per axis; no gradient."""
+    axes = _active(mesh, axes)
+    if not axes:
+        return torch.zeros_like(x)
+    every = _gather(x.detach()[None], mesh, axes, 0)
+    i = 0
+    for a in axes:
+        i = i * mesh_shape(mesh)[a] + axis_index(mesh, a)
+    return every[:i].sum(0)
+
+
+class Region(NamedTuple):
+    """What code inside a model's manual region needs of its layout: the
+    mesh, the active axes the batch is split over and those the experts
+    are split over."""
+    mesh: Any
+    batch_axes: Tuple[str, ...]
+    expert_axes: Tuple[str, ...]
 
 
 def _replicas(t) -> int:

@@ -186,6 +186,7 @@ class LLMServer:
         self.device = resolve_device(device)
         preset = getattr(llama.LlamaConfig, model_preset)
         self.cfg = preset(max_seq_len=max_len)
+        llama.check_kv_cache_decode(self.cfg)
         self.max_slots = max_slots
         self.max_len = max_len
         self.buckets = tuple(sorted(b for b in prefill_buckets

@@ -134,6 +134,73 @@ def case_mesh8(inputs, out):
             out.update(_flat(state["params"], f"{name}/p/"))
 
 
+def case_moe8(inputs, out):
+    """Eight ranks, MoE.  The Switch FFN alone at expert=4 x data=2
+    (output, aux and the gradients of sum(out**2) + 0.01*aux, from
+    sharded params); then one train step of moe_debug from sharded params
+    at expert=4 x data=2 (dot attention) and at seq=2 x expert=2 x
+    fsdp=2 (ring attention): loss, grad norm, the new params, and the
+    expert weights each rank's FFN computed with."""
+    from ray_tpu_torch.models import moe
+    from ray_tpu_torch.parallel.spmd import (Region, gather_param,
+                                             gather_slices, local_slice)
+
+    cfg = moe.MoEConfig(dtype=torch.float32,
+                        **dict(inputs["ffn_config"].item()))
+    ffn = _params(inputs, "ffn/")
+    x = torch.from_numpy(inputs["ffn_x"]).requires_grad_()
+    mesh = build_mesh(MeshSpec(expert=4, data=2), "cpu")
+    with use_mesh(mesh):
+        sharded = shard_params(ffn, moe.moe_param_logical_axes())
+    leaves = {k: v.requires_grad_() for k, v in sharded.items()}
+    local = {"router": gather_param(leaves["router"], mesh, ["data"])}
+    for k in moe.EXPERT_WEIGHTS:
+        local[k] = gather_param(leaves[k], mesh, [], keep={"expert": 0})
+    out_l, aux = moe.moe_ffn(local_slice(x, mesh, ["data"], 0), local, cfg,
+                             Region(mesh, ("data",), ("expert",)))
+    y = gather_slices(out_l, mesh, ["data"], 0)
+    grads = torch.autograd.grad((y ** 2).sum() + 0.01 * aux,
+                                [x, *leaves.values()])
+    out["ffn/out"] = y.detach().numpy()
+    out["ffn/aux"] = aux.detach().numpy()
+    out["ffn/local_w_gate"] = np.array(local["w_gate"].shape)
+    out["ffn/g/x"] = grads[0].numpy()
+    for k, g in zip(leaves, grads[1:]):
+        out[f"ffn/g/{k}"] = g.full_tensor().numpy()
+
+    calls = []
+    moe_ffn = moe.moe_ffn
+
+    def recording_moe_ffn(x, params, config, region=None):
+        calls.append([tuple(params[k].shape) for k in moe.EXPERT_WEIGHTS])
+        return moe_ffn(x, params, config, region)
+
+    moe.moe_ffn = recording_moe_ffn
+    params = _params(inputs)
+    batch = {"tokens": torch.from_numpy(inputs["tokens"])}
+    for name, spec, impl in (
+            ("ep4_dp2", MeshSpec(expert=4, data=2), "dot"),
+            ("sp2_ep2_fsdp2", MeshSpec(seq=2, expert=2, fsdp=2), "ring")):
+        cfg = llama.LlamaConfig.moe_debug(dtype=torch.float32,
+                                          attention_impl=impl,
+                                          max_seq_len=64)
+        calls.clear()
+        with use_mesh(build_mesh(spec, "cpu")):
+            state = llama.init_train_state(cfg, device="cpu")
+            state["params"] = shard_params(
+                {k: v.clone() if not isinstance(v, dict) else
+                 {kk: vv.clone() for kk, vv in v.items()}
+                 for k, v in params.items()},
+                llama.param_logical_axes(cfg))
+            step = llama.make_train_step(cfg, device="cpu")
+            state, metrics = step(state, batch)
+            out[f"{name}/loss"] = metrics["loss"].numpy()
+            out[f"{name}/norm"] = metrics["grad_norm"].numpy()
+            out.update(_flat(state["params"], f"{name}/p/"))
+        out[f"{name}/expert_shapes"] = np.array(calls)
+    moe.moe_ffn = moe_ffn
+
+
 def case_ring(inputs, out):
     """Ring attention over seq=2 and seq=4 (forward) and the gradients of
     sum(out**2) at seq=4, on meshes that fill the eight ranks."""

@@ -52,7 +52,8 @@ def test_convert_round_trip_is_bit_exact(dtype):
 
 
 @pytest.mark.parametrize("preset", ["debug", "llama_125m", "llama_440m",
-                                    "llama2_7b", "llama3_8b"])
+                                    "llama2_7b", "llama3_8b", "moe_debug",
+                                    "llama_moe_1b"])
 def test_presets_keep_their_numbers(preset):
     j = getattr(jl.LlamaConfig, preset)()
     t = getattr(tl.LlamaConfig, preset)()
@@ -66,19 +67,22 @@ def test_presets_keep_their_numbers(preset):
                                 dict(attention_impl="ring"),
                                 dict(pipeline_microbatches=2)])
 def test_unported_features_raise(kw):
-    """MoE is not ported and raises; ring attention and the pipeline
-    schedule are (ring resolves to the ring kernel path, a pipelined
-    config builds)."""
-    if "moe_experts" not in kw:
-        cfg = tl.LlamaConfig.debug(**kw)
-        assert all(getattr(cfg, k) == v for k, v in kw.items())
-        if cfg.attention_impl == "ring":
-            from ray_tpu_torch.ops.ring_attention import \
-                ring_attention_causal
-            assert tl._get_attention_fn(cfg) is ring_attention_causal
-        return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tl.LlamaConfig.debug(**kw)
+    """Features of the reference that the port once refused now build:
+    MoE (a config with experts gets the router and expert weights and
+    returns the aux loss), ring attention (resolves to the ring kernel
+    path) and the pipeline schedule (a pipelined config builds)."""
+    cfg = tl.LlamaConfig.debug(**kw)
+    assert all(getattr(cfg, k) == v for k, v in kw.items())
+    if cfg.attention_impl == "ring":
+        from ray_tpu_torch.ops.ring_attention import \
+            ring_attention_causal
+        assert tl._get_attention_fn(cfg) is ring_attention_causal
+    if cfg.moe_experts:
+        params = tl.init_params(cfg, device="cpu")
+        assert params["layers"]["router"].shape == (2, 64, 4)
+        _, aux = tl.forward(params, torch.zeros((1, 8), dtype=torch.long),
+                            cfg, device="cpu", return_aux=True)
+        assert float(aux) > 0
 
 
 def test_init_params_layout_matches_jax():

@@ -378,3 +378,93 @@ def test_pipeline_branch_keeps_the_reference_errors():
             tl.forward(params, tok, tl.LlamaConfig.debug(
                 pipeline_microbatches=2, attention_impl="ring"),
                 device="cpu")
+
+
+# ---------------------------------------------------------------------------
+# Expert parallelism (MoE) in the manual region (gloo processes)
+# ---------------------------------------------------------------------------
+
+_FFN = dict(hidden_size=32, intermediate_size=64, n_experts=8, top_k=2)
+
+
+@pytest.mark.net
+def test_moe_mesh8_matches_single_process_and_jax(tmp_path):
+    """Eight gloo ranks, the port's twins of the reference's expert-
+    parallel gates (tests/test_parallel.py::test_moe_expert_parallel_mesh,
+    tests/test_models.py::test_moe_sharded_step_matches_single_device and
+    the dryrun's MoE stage, ``__graft_entry__.py:50-63``):
+    - the Switch FFN alone at expert=4 x data=2 from sharded params: the
+      output and aux against the unsharded JAX and port runs, every
+      gradient finite and equal to the one-process port's;
+    - one train step of moe_debug at expert=4 x data=2 (dot attention)
+      and at seq=2 x expert=2 x fsdp=2 (ring attention): loss and grad
+      norm against the one-process port step and the JAX step, the new
+      params against the one-process port's;
+    - each rank's FFN computes with its E/ep experts only."""
+    from ray_tpu.models import moe as jm
+    from ray_tpu_torch.models import moe as tm
+
+    cfg_j = jm.MoEConfig(dtype=jnp.float32, **_FFN)
+    ffn = jm.init_moe_params(jax.random.key(0), cfg_j)
+    x = np.random.default_rng(1).standard_normal((4, 16, 32)).astype(
+        np.float32)
+    mcfg = jl.LlamaConfig.moe_debug(dtype=jnp.float32)
+    params = jl.init_params(jax.random.key(0), mcfg)
+    tokens = np.random.default_rng(6).integers(
+        0, mcfg.vocab_size, (8, 32)).astype(np.int32)
+    inputs = _inputs(params, tokens)
+    inputs.update({f"ffn/{k}": np.asarray(v) for k, v in ffn.items()})
+    inputs["ffn_x"] = x
+    inputs["ffn_config"] = np.array(dict(_FFN), dtype=object)
+    outs = gloo.run_ranks("moe8", 8, tmp_path, inputs, timeout=150)
+
+    # The FFN alone: the unsharded runs.
+    ref_out, ref_aux = jm.moe_ffn(jnp.asarray(x), ffn, cfg_j)
+    cfg_t = tm.MoEConfig(dtype=torch.float32, **_FFN)
+    pt = {k: v.requires_grad_() for k, v in convert.from_jax_params(
+        jax.tree.map(np.asarray, ffn), device="cpu").items()}
+    xt = torch.from_numpy(x).requires_grad_()
+    out_t, aux_t = tm.moe_ffn(xt, pt, cfg_t)
+    ref_g = dict(zip(["x", *pt], torch.autograd.grad(
+        (out_t ** 2).sum() + 0.01 * aux_t, [xt, *pt.values()])))
+    # Two (token, k) overflow their expert: drops across the ranks.
+    _, _, idx = tm._route(xt.detach().reshape(-1, 32), pt["router"], 2)
+    pos, _ = tm._positions(idx, 8)
+    assert int((pos >= tm.capacity(64, cfg_t)).sum()) == 2
+    for out in outs:
+        assert _rel(out["ffn/out"], ref_out) <= LOSS_RTOL
+        assert _rel(out["ffn/out"], out_t.detach()) <= LOSS_RTOL
+        assert _rel(out["ffn/aux"], ref_aux) <= LOSS_RTOL
+        assert out["ffn/local_w_gate"].tolist() == [2, 32, 64]  # E/ep = 8/4
+        for k, g in ref_g.items():
+            assert np.isfinite(out[f"ffn/g/{k}"]).all(), k
+            assert _rel(out[f"ffn/g/{k}"], g) <= GRAD_RTOL, k
+
+    # The train steps: one-process references (dot attention; ring on
+    # one device is flash over the whole sequence, the same function).
+    ct = tl.LlamaConfig.moe_debug(dtype=torch.float32)
+    state = tl.init_train_state(ct, device="cpu")
+    state["params"] = convert.from_jax_params(
+        jax.tree.map(np.asarray, params), device="cpu")
+    state, m = tl.make_train_step(ct, device="cpu")(
+        state, {"tokens": torch.from_numpy(tokens)})
+    port_p = _flat(convert.to_numpy(state["params"]))
+    jstate = {**jl.init_train_state(jax.random.key(0), mcfg),
+              "params": params}
+    _, jm_ = jl.make_train_step(mcfg, donate=False)(
+        jstate, {"tokens": jnp.asarray(tokens)})
+    for name, ep in (("ep4_dp2", 4), ("sp2_ep2_fsdp2", 2)):
+        for out in outs:
+            assert _rel(out[f"{name}/loss"], m["loss"]) <= LOSS_RTOL, name
+            assert _rel(out[f"{name}/loss"], jm_["loss"]) <= LOSS_RTOL, name
+            assert _rel(out[f"{name}/norm"], m["grad_norm"]) <= GRAD_RTOL
+            assert _rel(out[f"{name}/norm"],
+                        jm_["grad_norm"]) <= GRAD_RTOL, name
+            for key, want in port_p.items():
+                assert _rel(out[f"{name}/p/{key}"], want) <= GRAD_RTOL, \
+                    (name, key)
+            # One FFN call per layer, each on (E/ep, ...) expert weights.
+            E, D, H = ct.moe_experts, ct.hidden_size, ct.intermediate_size
+            assert out[f"{name}/expert_shapes"].tolist() == \
+                [[[E // ep, D, H], [E // ep, D, H], [E // ep, H, D]]] * \
+                ct.n_layers, name
