@@ -22,6 +22,8 @@ import time
 from pathlib import Path
 from typing import Dict, List, Optional
 
+from ..observability import device as _device
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -73,6 +75,7 @@ def build(name: str, sources: List[str]) -> Path:
         raise RuntimeError(f"nvcc failed for {name}:\n{proc.stderr}")
     build_seconds[name] = time.perf_counter() - t0
     build_logs[name] = proc.stderr
+    _device.record_kernel_build(name, build_seconds[name])
     os.replace(tmp, out)  # atomic: a concurrent loader never sees half
     return out
 

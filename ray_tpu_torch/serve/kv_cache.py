@@ -29,8 +29,8 @@ side of the paged design:
 
 The device side (block-gathering attention, scatter-back writes,
 static block-count buckets) lives in ``serve/llm.py``.  The occupancy
-and prefix-cache series go to the port's per-process registry
-(``core/metrics.py``) under the reference's names.
+and prefix-cache series go to the metrics plane
+(``observability/metrics.py``) under the reference's names.
 
 Thread-safety: every public method takes the allocator lock; the
 prefix cache shares its allocator's lock so a lookup's incref and an
@@ -45,7 +45,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
-from ..core.metrics import kv_cache_counters
+from ..observability.metrics import kv_cache_counters
 from ..exceptions import BackPressureError
 
 # Block 0 is the NULL block: never allocated, used as the gather/
@@ -511,3 +511,19 @@ class PrefixCache:
                 dropped += 1
             self._nodes = 0
             return dropped
+
+
+def release_model_kv(model, model_id: str = "") -> bool:
+    """Best-effort KV release hook for multiplexed-model eviction
+    (called by ``serve.multiplexed``'s LRU before ``unload``): a model
+    exposing ``release_kv_cache()`` frees its paged-KV holds (block
+    tables, prefix trie) back to the shared allocator.  Returns True
+    if the model had the hook."""
+    fn = getattr(model, "release_kv_cache", None)
+    if not callable(fn):
+        return False
+    try:
+        fn()
+    except Exception:
+        pass
+    return True

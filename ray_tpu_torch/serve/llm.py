@@ -48,8 +48,12 @@
   tokens harvested before the next decode chunk is enqueued, so newly
   admitted requests join that chunk.
 - Device annotations ``serve.prefill`` / ``serve.decode_chunk`` /
-  ``serve.spec_draft`` / ``serve.spec_verify`` are
-  ``torch.profiler.record_function`` ranges with the reference's names.
+  ``serve.spec_draft`` / ``serve.spec_verify`` are the device plane's
+  ``annotation`` ranges (``observability/device.py``) with the
+  reference's names.
+- Every series the engine feeds is tagged with its Serve deployment's
+  name (``serve_deployment``, injected by the replica), or ``"llm"``
+  outside Serve, as the reference's are.
 
 Not ported yet (``NotImplementedError``): prefill/decode
 disaggregation (``role="prefill"|"decode"``).
@@ -67,12 +71,12 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
-from torch.profiler import record_function
 
 from ..core import deadlines as _deadlines
 from ..core.device import DeviceLike, resolve_device, to_device
-from ..core.metrics import (kv_cache_counters, metrics_summary,
-                            overload_counters, record_program_ema)
+from ..observability import device as _device
+from ..observability.metrics import (kv_cache_counters, metrics_summary,
+                                     overload_counters)
 from ..exceptions import BackPressureError, DeadlineExceededError
 from ..models import llama
 from .kv_cache import (NULL_BLOCK, BlockTable, KVBlockAllocator, PrefixCache,
@@ -90,10 +94,6 @@ _FEASIBILITY_MARGIN = 0.6
 # latency-sensitive: it is also shed when the estimated queue delay alone
 # exceeds about one service time.
 _QUEUE_TIGHT_X = 10.0
-
-# The engine's label on its metric series (the reference's default
-# deployment name).
-_LABEL = "llm"
 
 _NOT_PORTED = ("is not ported yet (ROADMAP queue A, 'Wire + collectives': "
                "prefill/decode disaggregation)")
@@ -158,6 +158,7 @@ class LLMServer:
                  warmup: bool = True, paged: bool = False,
                  block_size: int = 16, num_blocks: Optional[int] = None,
                  role: str = "both",
+                 serve_deployment: Optional[str] = None,
                  prefill_groups: Optional[Tuple[int, ...]] = None,
                  kv_quant: Optional[str] = None, spec_k: int = 0,
                  draft_preset: Optional[str] = None,
@@ -194,6 +195,7 @@ class LLMServer:
         self.decode_chunk = max(1, int(decode_chunk))
         self.paged = bool(paged)
         self.role = role
+        self._deployment = serve_deployment
         self.prefill_groups = tuple(sorted(
             prefill_groups or PREFILL_GROUPS))
         # Attended-prefix buckets: powers of two from the smallest
@@ -347,8 +349,8 @@ class LLMServer:
         # names the null block instead: its gathers are masked and its
         # scatters land in a block no table maps.
         self._pad_block = NULL_BLOCK
-        self.allocator = KVBlockAllocator(self.num_blocks, bs,
-                                          pool_label=_LABEL)
+        self.allocator = KVBlockAllocator(
+            self.num_blocks, bs, pool_label=self._deployment or "llm")
         self.prefix_cache = PrefixCache(self.allocator)
         self.slot_table: List[Optional[BlockTable]] = [None] * self.max_slots
         self._preempted = 0  # requests sent back to the backlog
@@ -376,7 +378,7 @@ class LLMServer:
 
     def _publish_pool_bytes(self) -> None:
         kv_cache_counters()["pool_bytes"].set(
-            self.pool_bytes, tags={"pool": _LABEL,
+            self.pool_bytes, tags={"pool": self._deployment or "llm",
                                    "dtype": self.kv_quant or "bf16"})
 
     def _gather(self, name, bt, trash_row=False):
@@ -680,6 +682,11 @@ class LLMServer:
             "ttft_ms": round((req.t_first_token - req.t_submit) * 1e3, 2),
         }
 
+    async def __call__(self, request: Dict[str, Any]) -> Dict[str, Any]:
+        """The deployment's default method, which Serve's HTTP proxy
+        calls with the request's JSON body: :meth:`generate`."""
+        return await self.generate(request)
+
     @staticmethod
     def _request_deadline(request) -> Optional[float]:
         rel = request.get("deadline_s")
@@ -905,7 +912,7 @@ class LLMServer:
                 lens[j] = P
                 slots[j] = slot
                 members.append((j, slot, req))
-            with record_function("serve.prefill"):
+            with _device.annotation("serve.prefill"):
                 first = self._prefill(to_device(toks, dev),
                                       to_device(lens, dev), slots)
             self._pending_prefills.append((_HostCopy(first), members, t0))
@@ -928,7 +935,7 @@ class LLMServer:
             if warm:
                 pre_bt[j, :first_w] = table.blocks[:first_w]
             members.append((j, slot, req))
-        with record_function("serve.prefill"):
+        with _device.annotation("serve.prefill"):
             if warm:
                 first = self._prefill_warm(
                     to_device(toks, dev), to_device(lens, dev),
@@ -1128,7 +1135,7 @@ class LLMServer:
         sa = next((b for b in self.decode_buckets if high <= b),
                   self.decode_buckets[-1])
         active_dev = to_device(active, dev)
-        with record_function("serve.spec_draft"):
+        with _device.annotation("serve.spec_draft"):
             dts = self._draft_propose(to_device(tok, dev),
                                       to_device(pos, dev), active_dev,
                                       k, int(sa))
@@ -1144,7 +1151,7 @@ class LLMServer:
                 vtoks[s, 1:] = dtoks[:k - 1, s]
             vpos[s] = pos[s] + np.arange(k)
         bt = self._table_bt(snapshot)
-        with record_function("serve.spec_verify"):
+        with _device.annotation("serve.spec_verify"):
             g_dev = self._spec_verify(to_device(vtoks, dev),
                                       to_device(vpos, dev), active_dev,
                                       to_device(bt, dev))
@@ -1190,7 +1197,8 @@ class LLMServer:
     def _emit_ema(self, program: str, seconds) -> None:
         """``ray_tpu_serve_program_seconds{deployment,program}``: the
         per-program execution-time EMA the feasibility shed steers by."""
-        record_program_ema(_LABEL, program, seconds)
+        _device.record_program_ema(self._deployment or "llm",
+                                   program, seconds)
 
     def _count_spec(self, proposed: int, accepted: int) -> None:
         self._spec_proposed += proposed
@@ -1198,7 +1206,7 @@ class LLMServer:
         if not proposed:
             return
         m = kv_cache_counters()
-        tags = {"deployment": _LABEL}
+        tags = {"deployment": self._deployment or "llm"}
         m["spec_proposed"].inc(proposed, tags=tags)
         m["spec_accepted"].inc(accepted, tags=tags)
 
@@ -1287,7 +1295,7 @@ class LLMServer:
         ov = to_device(np.stack([self._ov_tok, self._ov_len,
                                  self._ov_mask, active]), dev)
         ov_args = (ov[0], ov[1], ov[2] != 0, ov[3] != 0)
-        with record_function("serve.decode_chunk"):
+        with _device.annotation("serve.decode_chunk"):
             if self.paged:
                 bt = to_device(self._table_bt(snapshot), dev)
                 toks = self._decode_paged(*ov_args, bt, k)

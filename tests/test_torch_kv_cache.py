@@ -11,7 +11,7 @@ import torch
 
 from ray_tpu.models import llama as jl
 from ray_tpu.serve import kv_cache as jkv
-from ray_tpu_torch.core.metrics import metrics_summary
+from ray_tpu_torch.observability.metrics import metrics_summary
 from ray_tpu_torch.exceptions import BackPressureError
 from ray_tpu_torch.models import llama as tl
 from ray_tpu_torch.serve.kv_cache import (KV_QUANT_FORMATS, NULL_BLOCK,

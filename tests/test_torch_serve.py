@@ -113,7 +113,8 @@ def test_expired_shed_counter_matches_jax_engine(f32_preset):
     under the same ``where`` tag on both engines (each package keeps its
     own per-process registry)."""
     from ray_tpu.observability.metrics import overload_counters as jax_oc
-    from ray_tpu_torch.core.metrics import overload_counters as port_oc
+    from ray_tpu_torch.observability.metrics import \
+        overload_counters as port_oc
 
     request = {"prompt": [1, 2, 3], "max_new_tokens": 4, "deadline_s": -1.0}
     moved = {}
@@ -146,7 +147,7 @@ def test_program_seconds_gauge_set_for_each_program(f32_preset, kw,
     """A served request sets ``ray_tpu_serve_program_seconds{deployment,
     program}`` for every program the engine ran (the EMA the feasibility
     shed steers by), under the reference's tags."""
-    from ray_tpu_torch.core.metrics import model_plane_metrics
+    from ray_tpu_torch.observability.device import model_plane_metrics
 
     gauge = model_plane_metrics()["program_ema"]
     for key in list(gauge.snapshot()):
