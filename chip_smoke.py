@@ -198,6 +198,18 @@ through the entry points a user would call, and checks the results:
     head TSDB, the dashboard and ``render_top`` within 64 MiB of their
     own ``memory_stats``.  The phase's flash launches join the kernels
     line.
+26. (run after 16, before 15, since it needs phase 10's tok/s) the
+    drivers of ``ray_tpu_torch/tools/`` (:func:`drivers_phase`): a.
+    ``dryrun.entry()``'s llama_125m logits bit-equal to a direct forward;
+    b. ``dryrun.dryrun_multichip`` over the machine's cards (one card: n
+    = 1, in this process), both losses in (0, 20); c. ``profile_mfu`` at
+    llama_440m B=8 x S=2048 with both optimizers, one subprocess a
+    phase: the forward / backward / optimizer / attention / head split,
+    each child's flash launches equal to its calls times the launches a
+    call (added to the kernels line), the optimizer update timed alone,
+    the fused tok/s within 0.7-1.3 of phase 10's, and one attn_dot
+    gradient's peak memory; d. ``perf_sweep``'s bf16-moment case, with
+    its tok/s and MFU.
 
 ``--profile DIR`` adds a torch.profiler pass over the forward, over one
 more round of requests, over one train step and over one step through
@@ -4629,6 +4641,170 @@ def chaos_phase(fa, torch, llama):
     return launches
 
 
+# Phase 26: the drivers of ray_tpu_torch/tools/ (the counterparts of the
+# repository's profile_mfu.py, perf_sweep.py and __graft_entry__.py).
+PROFILE_ARGS = ("--preset", "llama_440m", "--batch", str(TRAIN_B), "--seq",
+                str(TRAIN_S), "--optimizer", "both")
+# The one case whose code phases 10 and 26c do not run: the bf16 first
+# moment (ClipAdamW's mu_dtype).
+SWEEP_CASES = ("bf16mu-full-b8",)
+# The profiler's fused tok/s over phase 10's for the same configuration.
+# Its step phase allocates a new state a call (donate=False) where phase
+# 10 updates in place; outside this band the profiler would be timing
+# something other than the step (a missing sync, the first use counted).
+TOL_PROFILE_TOKS = (0.7, 1.3)
+
+
+def _profile_per_call(cfg):
+    """Flash launches per call of each profiler phase at ``cfg`` (remat
+    "attn": the backward never re-runs the flash forward)."""
+    n = cfg.n_layers
+    every = {"flash_fwd": n, "flash_bwd_dq": n, "flash_bwd_dkdv": n}
+    return {"fwd": {"flash_fwd": n}, "grad": every, "step": every,
+            "attn_flash": {k: 1 for k in every}, "attn_dot": {},
+            "head": {}}
+
+
+def drivers_phase(fa, torch, llama, train_tok_s):
+    """26. The drivers: a. ``dryrun.entry()`` on the card, its logits
+    finite, (4, 512, 32000) and bit-equal to a direct ``llama.forward``;
+    b. ``dryrun.dryrun_multichip(device_count())`` (one card: n = 1, in
+    this process), both losses in (0, 20); c. ``python -m
+    ray_tpu_torch.tools.profile_mfu`` at llama_440m B=8 x S=2048 with
+    both optimizers, every phase timed, the launches of each child equal
+    to its calls times the launches a call, the backward and the
+    optimizer update (timed alone) above 0, the fused tok/s against
+    phase 10's within :data:`TOL_PROFILE_TOKS`, and the peak memory of
+    one attn_dot call; d. ``python -m ray_tpu_torch.tools.perf_sweep``
+    over :data:`SWEEP_CASES`.  Returns the flash launches of c's
+    children."""
+    from ray_tpu_torch.tools import dryrun, profile_mfu
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+
+    # a. entry().
+    fn, (params, tokens) = dryrun.entry()
+    cfg = llama.LlamaConfig.llama_125m(max_seq_len=512, remat=False)
+    logits = fn(params, tokens)
+    direct = llama.forward(params, tokens, cfg)
+    same = torch.equal(logits, direct)
+    phase("drivers", f"26a dryrun.entry(): llama_125m logits "
+          f"{tuple(logits.shape)} {logits.dtype}, finite "
+          f"{bool(torch.isfinite(logits).all())}, bit-equal to "
+          f"llama.forward: {same}")
+    if logits.shape != (4, 512, cfg.vocab_size) or \
+            not torch.isfinite(logits).all() or not same:
+        fail("26a: entry()'s logits are not the forward's")
+    del fn, params, tokens, logits, direct
+    torch.cuda.empty_cache()
+
+    # b. dryrun_multichip over every card of this machine.
+    n = torch.cuda.device_count()
+    res = dryrun.dryrun_multichip(n)
+    losses = [res["dense"]["loss"], res["moe"]["loss"]]
+    phase("drivers", f"26b dryrun_multichip({n}): dense loss "
+          f"{losses[0]:.4f}, moe loss {losses[1]:.4f}, device "
+          f"{res['device']}, in this process on "
+          f"cuda:{torch.cuda.current_device()}"
+          + ("" if n > 1 else "; one card: the NCCL path of n > 1 ranks, "
+             "one card each, is not run on this machine (its gloo form is "
+             "tests/test_torch_dryrun.py's)"))
+    if res["device"] != "cuda":
+        fail(f"26b: dryrun_multichip ran on {res['device']}, not the card")
+    if not all(0.0 < x < 20.0 for x in losses):
+        fail(f"26b: dryrun_multichip losses {losses} outside (0, 20)")
+
+    # c. The profiler, one subprocess a phase.
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m",
+                        "ray_tpu_torch.tools.profile_mfu", *PROFILE_ARGS],
+                       cwd=HERE, capture_output=True, text=True, timeout=900)
+    profile_s = time.perf_counter() - t0
+    lines = [json.loads(ln) for ln in r.stdout.splitlines()
+             if ln.startswith("{")]
+    results = [x for x in lines if "model_params" in x]
+    if r.returncode != 0 or len(results) != 2:
+        fail(f"26c: profile_mfu rc {r.returncode}, {len(results)} results: "
+             f"{r.stdout[-2000:]} {r.stderr[-3000:]}")
+    phase("drivers", f"26c profile_mfu {' '.join(PROFILE_ARGS)}: "
+          f"{profile_s:.1f}s; {json.dumps(lines[0])}")
+    per_call = _profile_per_call(llama.LlamaConfig.llama_440m())
+    kw = profile_mfu.timeit.__kwdefaults__
+    calls = kw["warmup"] + kw["steps"]
+    launches = {}
+    for i, got in enumerate(results):
+        opt = got["optimizer"]
+        phase("drivers", f"26c {opt}: " + json.dumps(got))
+        errs = [k for k in got if k.endswith("_err")]
+        missing = [p for p in profile_mfu.PHASES if p + "_s" not in got]
+        if errs or missing:
+            fail(f"26c: {opt} phases failed {errs} or missing {missing}")
+        # opt_update_s is the update timed alone; the derived opt_s
+        # (step_s - grad_s) is printed, not gated: it is a difference of
+        # two processes' means, within their noise of 0.
+        if not got["bwd_s"] > 0 or not got.get("opt_update_s", 0) > 0:
+            fail(f"26c: {opt} bwd_s {got['bwd_s']} or opt_update_s "
+                 f"{got.get('opt_update_s')} out of range")
+        for p in profile_mfu.PHASES:
+            want = {name: k * calls for name, k in per_call[p].items()}
+            if got[p + "_launches"] != want:
+                fail(f"26c: {opt} {p} launched {got[p + '_launches']}, "
+                     f"expected {want} ({calls} calls)")
+            if i == 0 or p == "step":  # the fused run reuses the rest
+                _count_into(launches, got[p + "_launches"])
+    ratio = results[1]["tok_per_s"] / train_tok_s
+    ok = TOL_PROFILE_TOKS[0] <= ratio <= TOL_PROFILE_TOKS[1]
+    phase("drivers", f"26c fused tok/s {results[1]['tok_per_s']:.1f} / "
+          f"phase 10's {train_tok_s:.1f} = {ratio:.3f} (band "
+          f"{TOL_PROFILE_TOKS}) {'ok' if ok else 'OUT OF BAND'}; launches "
+          f"{launches} ({calls} calls a child, as expected)")
+    if not ok:
+        fail("26c: the profiler's step time is not phase 10's")
+    B, S = TRAIN_B, TRAIN_S
+    c = llama.LlamaConfig.llama_440m()
+    g = torch.Generator(device="cuda")
+    g.manual_seed(2)
+    q, k, v = (torch.randn((B, S, h, c.head_dim), generator=g,
+                           device="cuda").to(torch.bfloat16)
+               .requires_grad_() for h in (c.n_heads, c.n_kv_heads,
+                                           c.n_kv_heads))
+    pos = torch.arange(S, device="cuda").expand(B, S)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    grads = torch.autograd.grad(
+        llama.dot_attention(q, k, v, pos).float().sum(), (q, k, v))
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    phase("drivers", f"26c one attn_dot gradient at ({B},{S},{c.n_heads},"
+          f"{c.head_dim}) bf16: peak {peak / 2**30:.2f} GiB above its "
+          f"inputs (scores {B * c.n_heads * S * S * 4 / 2**30:.2f} GiB in "
+          f"f32)")
+    del q, k, v, pos, grads
+    torch.cuda.empty_cache()
+
+    # d. The sweep.
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m",
+                        "ray_tpu_torch.tools.perf_sweep", *SWEEP_CASES],
+                       cwd=HERE, capture_output=True, text=True, timeout=600)
+    sweep = [json.loads(ln) for ln in r.stdout.splitlines()
+             if ln.startswith("{")]
+    phase("drivers", f"26d perf_sweep {' '.join(SWEEP_CASES)}: "
+          f"{time.perf_counter() - t0:.1f}s; "
+          + "; ".join(json.dumps(x) for x in sweep))
+    if r.returncode != 0 or [x.get("tag") for x in sweep] != \
+            list(SWEEP_CASES) or any(
+                "error" in x or not x.get("tps") or not x.get("mfu")
+                for x in sweep):
+        fail(f"26d: perf_sweep failed: {r.stdout[-2000:]} "
+             f"{r.stderr[-2000:]}")
+    phase("drivers", f"phase 26 in {time.perf_counter() - t_phase:.1f}s; "
+          f"flash launches {launches}")
+    return launches
+
+
 def main() -> None:
     t_script = time.perf_counter()
     import torch
@@ -5094,6 +5270,8 @@ def main() -> None:
 
     moe_ffn_phase(torch, moe)
     moe_launches = moe_train_phase(fa, torch, llama, profile_dir)
+    # 26. The drivers of ray_tpu_torch/tools/, against phase 10's tok/s.
+    drivers_launches = drivers_phase(fa, torch, llama, tok_s)
     phase("launches", f"ring (bf16 chunk schedule) {ring_launches['bfloat16']}"
           f", ring f32 {ring_launches['float32']}, f32 model path "
           f"{c1_launches['float32']}, f16 model path "
@@ -5113,7 +5291,8 @@ def main() -> None:
                      + pipe_launches["b"]["flash_fwd"]
                      + wf_launches["flash_fwd"]
                      + auto_launches["flash_fwd"]
-                     + chaos_launches.get("flash_fwd", 0)),
+                     + chaos_launches.get("flash_fwd", 0)
+                     + drivers_launches["flash_fwd"]),
         "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": library_ms}]
@@ -5125,7 +5304,8 @@ def main() -> None:
             "replaces": f"ray_tpu/ops/flash_attention.py:{line}",
             "launches": (train_launches[name] + trainer_launches[name]
                          + pipe_launches["b"][name] + wf_launches[name]
-                         + chaos_launches.get(name, 0)),
+                         + chaos_launches.get(name, 0)
+                         + drivers_launches[name]),
             "max_abs_err": err,
             "ms": bwd_ms[name], "plain_ms": bwd_plain_ms,
             "bound_ms": bwd_cost[name][2], "bound_by": bwd_cost[name][3],

@@ -103,16 +103,31 @@ def _clip(grads: List[torch.Tensor], clip_norm: float,
     return torch._foreach_div(grads, divisor), gnorm
 
 
-def _moments(g, mu, nu, b1, b2, inplace):
-    """mu = b1*mu + (1-b1)*g, nu = b2*nu + (1-b2)*g**2."""
+def _moments(g, mu, nu, b1, b2, inplace, mu_dtype=None):
+    """mu = b1*mu + (1-b1)*g, nu = b2*nu + (1-b2)*g**2.  Returns
+    ``(mu, stored_mu, nu)``: the new first moment for the direction and
+    the one the state keeps, the same tensors unless ``mu_dtype`` is set.
+    Then optax's ``scale_by_adam(mu_dtype=...)``: ``(1-b1)*g + b1*mu``
+    with ``b1*mu`` in ``mu_dtype`` (``b1`` rounded to it, as JAX rounds a
+    Python scalar to the array's dtype) and the sum in the promoted
+    dtype, stored cast to ``mu_dtype``."""
     if not inplace:
-        mu = [t.clone() for t in mu]
         nu = [t.clone() for t in nu]
-    torch._foreach_mul_(mu, b1)
-    torch._foreach_add_(mu, g, alpha=1.0 - b1)
     torch._foreach_mul_(nu, b2)
     torch._foreach_addcmul_(nu, g, g, value=1.0 - b2)
-    return mu, nu
+    if mu_dtype is not None:
+        b1_mu = float(torch.tensor(b1, dtype=mu_dtype))
+        new = torch._foreach_add(torch._foreach_mul(g, 1.0 - b1),
+                                 torch._foreach_mul(mu, b1_mu))
+        if inplace:
+            torch._foreach_copy_(mu, new)
+            return new, mu, nu
+        return new, [t.to(mu_dtype) for t in new], nu
+    if not inplace:
+        mu = [t.clone() for t in mu]
+    torch._foreach_mul_(mu, b1)
+    torch._foreach_add_(mu, g, alpha=1.0 - b1)
+    return mu, mu, nu
 
 
 def _bias_corrections(count: torch.Tensor, b1: float, b2: float):
@@ -122,7 +137,8 @@ def _bias_corrections(count: torch.Tensor, b1: float, b2: float):
 
 def _adamw_direction(grads: Tree, state, params: Tree, b1: float, b2: float,
                      eps: float, weight_decay: float, clip_norm: float,
-                     inplace: bool, norm_fn: Optional[Callable] = None):
+                     inplace: bool, norm_fn: Optional[Callable] = None,
+                     mu_dtype: Optional[torch.dtype] = None):
     """The AdamW step before the learning rate, in optax's order (clip,
     scale_by_adam, add_decayed_weights):
 
@@ -132,10 +148,12 @@ def _adamw_direction(grads: Tree, state, params: Tree, b1: float, b2: float,
         u   = mu/c1 / (sqrt(nu/c2) + eps) + wd*p
 
     Returns ``(u, new_state, grad_norm)``: ``u`` as leaves, the new state
-    of ``state``'s type, and the PRE-clip norm."""
+    of ``state``'s type, and the PRE-clip norm.  ``mu_dtype`` as in
+    :func:`_moments`."""
     g, gnorm = _clip(tree_leaves(grads), clip_norm, norm_fn)
-    mu, nu = _moments(g, tree_leaves(state.mu), tree_leaves(state.nu), b1,
-                      b2, inplace)
+    mu, stored_mu, nu = _moments(g, tree_leaves(state.mu),
+                                 tree_leaves(state.nu), b1, b2, inplace,
+                                 mu_dtype)
     count = state.count.add_(1) if inplace else state.count + 1
     c1, c2 = _bias_corrections(count, b1, b2)
     denom = torch._foreach_div(nu, c2)
@@ -144,7 +162,8 @@ def _adamw_direction(grads: Tree, state, params: Tree, b1: float, b2: float,
     u = torch._foreach_div(mu, c1)
     torch._foreach_div_(u, denom)
     torch._foreach_add_(u, tree_leaves(params), alpha=weight_decay)
-    new_state = type(state)(count=count, mu=tree_unflatten(state.mu, mu),
+    new_state = type(state)(count=count,
+                            mu=tree_unflatten(state.mu, stored_mu),
                             nu=tree_unflatten(state.nu, nu))
     return u, new_state, gnorm
 
@@ -161,19 +180,25 @@ class ClipAdamWState(NamedTuple):
 
 class ClipAdamW:
     """``init(params)`` / ``update(grads, state, params)`` like an optax
-    GradientTransformation; :func:`apply_updates` applies the result."""
+    GradientTransformation; :func:`apply_updates` applies the result.
+    ``mu_dtype`` keeps the first moment in that dtype, as optax's
+    ``adamw(..., mu_dtype=...)`` does (the direction still uses the new
+    moment before its cast)."""
 
     def __init__(self, learning_rate: float = 3e-4, *, b1: float = 0.9,
                  b2: float = 0.999, eps: float = 1e-8,
-                 weight_decay: float = 1e-4, clip_norm: float = 1.0):
+                 weight_decay: float = 1e-4, clip_norm: float = 1.0,
+                 mu_dtype: Optional[torch.dtype] = None):
         self.learning_rate = learning_rate
         self.b1, self.b2, self.eps = b1, b2, eps
         self.weight_decay = weight_decay
         self.clip_norm = clip_norm
+        self.mu_dtype = mu_dtype
 
     def init(self, params: Tree) -> ClipAdamWState:
-        return ClipAdamWState(count=_count_zero(params),
-                              mu=_zeros_like(params),
+        mu = tree_map(lambda t: torch.zeros_like(t, dtype=self.mu_dtype),
+                      params)
+        return ClipAdamWState(count=_count_zero(params), mu=mu,
                               nu=_zeros_like(params))
 
     def update(self, grads: Tree, state: ClipAdamWState, params: Tree,
@@ -182,7 +207,8 @@ class ClipAdamW:
         state's moments in place; ``norm_fn`` as in :func:`_clip`."""
         u, new_state, _ = _adamw_direction(
             grads, state, params, self.b1, self.b2, self.eps,
-            self.weight_decay, self.clip_norm, inplace, norm_fn)
+            self.weight_decay, self.clip_norm, inplace, norm_fn,
+            self.mu_dtype)
         torch._foreach_mul_(u, -self.learning_rate)  # scale_by_learning_rate
         return tree_unflatten(grads, u), new_state
 

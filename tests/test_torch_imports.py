@@ -46,3 +46,23 @@ def test_entry_points_need_a_gpu_unless_cpu_is_asked(monkeypatch):
     logits = llama.LlamaModel(cfg, params=params, device="cpu")([[1, 2, 3]])
     assert logits.shape == (1, 3, cfg.vocab_size)
     assert logits.device.type == "cpu"
+
+
+def test_driver_tools_need_a_gpu_unless_cpu_is_asked(monkeypatch):
+    """profile_mfu's phase children, perf_sweep's cases and dryrun's
+    entry points fail without a card instead of using the CPU."""
+    from ray_tpu_torch.tools import dryrun, perf_sweep, profile_mfu
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        profile_mfu.run_one({"phase": "fwd", "batch": 2, "seq": 64,
+                             "preset": "debug"})
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        perf_sweep.run_one("flash-attn-b8")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        dryrun.entry()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        dryrun.dryrun_cross_pipeline()
+    for n in (1, 4):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            dryrun.dryrun_multichip(n)

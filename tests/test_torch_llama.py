@@ -219,3 +219,32 @@ def test_kv_cache_path_matches_jax(weights):
     _close(lt2, lj2)
     _close(cache_t["k"], cache_j["k"])
     _close(cache_t["v"], cache_j["v"])
+
+
+# Twins of tests/test_models.py's model invariants, on the port's
+# ``debug`` config as the reference's (bf16 compute), on the CPU.
+@pytest.fixture(scope="module")
+def debug_params():
+    cfg = tl.LlamaConfig.debug()
+    return cfg, tl.init_params(cfg, seed=0, device="cpu")
+
+
+def test_initial_loss_near_uniform(debug_params):
+    cfg, params = debug_params
+    toks = np.random.default_rng(2).integers(0, cfg.vocab_size, (4, 64))
+    loss = float(tl.loss_fn(params, {"tokens": toks}, cfg, device="cpu"))
+    uniform = np.log(cfg.vocab_size)
+    assert abs(loss - uniform) < 1.5, (loss, uniform)
+
+
+def test_causality(debug_params):
+    """Changing a future token must not change past logits."""
+    cfg, params = debug_params
+    toks = torch.from_numpy(
+        np.random.default_rng(3).integers(0, cfg.vocab_size, (1, 16)))
+    logits1 = tl.forward(params, toks, cfg, device="cpu")
+    toks2 = toks.clone()
+    toks2[0, 10] = (toks2[0, 10] + 1) % cfg.vocab_size
+    logits2 = tl.forward(params, toks2, cfg, device="cpu")
+    assert torch.equal(logits1[0, :10], logits2[0, :10])
+    assert not torch.equal(logits1[0, 10:], logits2[0, 10:])

@@ -315,3 +315,32 @@ def test_draft_proposes_the_truncated_models_greedy_tokens(f32_preset):
         assert got.tolist() == ctx[P + 1:]
     finally:
         srv.shutdown()
+
+
+# Twins of tests/test_spec_decode.py's TestSpecConfigValidation guards
+# (the draft_layers one is a case of test_paged_config_validation).
+def test_spec_requires_paged():
+    with pytest.raises(ValueError, match="paged"):
+        _port(model_preset="debug", warmup=False, paged=False, spec_k=2)
+
+
+def test_spec_requires_both_role():
+    with pytest.raises(ValueError, match="role"):
+        _port(model_preset="debug", warmup=False, paged=True, block_size=8,
+              spec_k=2, role="prefill")
+
+
+def test_quant_requires_paged():
+    with pytest.raises(ValueError, match="paged"):
+        _port(model_preset="debug", warmup=False, paged=False,
+              kv_quant="int8")
+
+
+def test_spec_engine_rejects_disagg_ingest():
+    srv = _port(model_preset="debug", warmup=False, paged=True,
+                block_size=8, spec_k=2, draft_layers=1)
+    try:
+        with pytest.raises(RuntimeError, match="ingest"):
+            asyncio.run(srv.decode_ingest({}, [1, 2], 3, 4))
+    finally:
+        srv.shutdown()
