@@ -210,6 +210,28 @@ through the entry points a user would call, and checks the results:
     the fused tok/s within 0.7-1.3 of phase 10's, and one attn_dot
     gradient's peak memory; d. ``perf_sweep``'s bf16-moment case, with
     its tok/s and MFU.
+27. (run after 26, before 15) llama3_8b, the JAX package's GQA preset
+    (:func:`llama3_phase`; 32 q heads over 8 kv heads, an untied head
+    over 128,256 tokens, rope theta 500,000), each part freeing the one
+    before it: a. B1s in f32 at 27c's shapes (1, 32/8, S, 128) causal
+    for two ragged prompt lengths and the lengths the model pads them
+    to, then B1, and B2 and B3 through
+    ``_FlashCore`` (the expand and group-sum at group 4), against their
+    plain versions at (1, 32/8, 8192, 128) bf16, with their times,
+    bounds, the plain versions' and SDPA's with ``enable_gqa``; b. the 32-layer forward at B=1 x S=8192
+    in bf16 on flash (32 B1 launches) and on dot against an f32
+    reference (phase 5's gate); c. ``LLMServer(model_preset=
+    "llama3_8b", max_slots=8, max_len=2048)``: 8 requests, TTFT
+    min/p50/p99, decode tok/s, the card's busy share; an f32 engine's
+    first tokens equal the f32 flash forward's argmax (B1s launches,
+    added to the kernels line); d. the bf16 paged, int8, fp8 and spec
+    planes answering the same requests (token agreement, pool bytes,
+    prefix hits), then f32 dense == paged == paged+spec tokens and a
+    warm paged run == the cold one; e. 3 fused train steps at full
+    width, B=1 x S=8192, at the largest depth whose reckoned peak fits
+    (7 of 32 layers on an 80 GB card): finite, falling losses, B1-B3
+    each launched once a layer a step (added to the kernels line), peak
+    memory against the reckoning, tok/s and the 6N share of the peak.
 
 ``--profile DIR`` adds a torch.profiler pass over the forward, over one
 more round of requests, over one train step and over one step through
@@ -367,13 +389,15 @@ def visible_pairs(Sq, Sk, causal):
 
 
 def attention_cost(B, Hq, Sq, Sk, D, causal, elem=2,
-                   peak=PEAK_BF16_FLOPS):
+                   peak=PEAK_BF16_FLOPS, kv_heads=None):
     """FLOP and bytes one flash forward call needs at these shapes
-    (``elem`` bytes an element), and its bound in ms at ``peak``."""
+    (``elem`` bytes an element; k/v at ``kv_heads``, Hq unless given),
+    and its bound in ms at ``peak``."""
+    Hkv = kv_heads or Hq
     flops = 4.0 * B * Hq * D * visible_pairs(Sq, Sk, causal)  # QK^T, PV
-    # q, k, v read once (k/v at Hq heads here: MHA shapes), o and lse
-    # written once.
-    nbytes = elem * B * Hq * D * (Sq + 2 * Sk + Sq) + 4.0 * B * Hq * Sq
+    # q, k, v read once, o and lse written once.
+    nbytes = (elem * B * D * (2 * Hq * Sq + 2 * Hkv * Sk)
+              + 4.0 * B * Hq * Sq)
     return (flops, nbytes) + bound(flops, nbytes, peak)
 
 
@@ -616,6 +640,16 @@ def shared_prefix_ttft(torch, server):
             fail(f"the warm wave hit the prefix cache {hits} times")
 
 
+def pool_reckoning(cfg, n_blocks, block_size=16):
+    """The paged pool reckoned from the config: K and V, every layer,
+    bf16 values, or 8-bit values plus one f32 scale per row.  Returns
+    (rows a block, {kv_quant: pool bytes})."""
+    rows = 2 * cfg.n_layers * block_size * cfg.n_kv_heads
+    return rows, {None: n_blocks * rows * cfg.head_dim * 2,
+                  "int8": n_blocks * rows * (cfg.head_dim + 4),
+                  "fp8": n_blocks * rows * (cfg.head_dim + 4)}
+
+
 def paged_phase(torch, llama, fa, LLMServer, prompts, profile_dir):
     """6b. The paged serving plane at llama_440m, full width and depth:
     bf16 planes with their numbers, then the token-identity, prefix,
@@ -632,12 +666,7 @@ def paged_phase(torch, llama, fa, LLMServer, prompts, profile_dir):
     base = dict(model_preset="llama_440m", max_slots=8, max_len=512,
                 paged=True, block_size=16)
     n_blocks = 1 + 8 * (512 // 16)  # the default: dense capacity
-    # The pool reckoned from the config: K and V, every layer, bf16
-    # values, or 8-bit values plus one f32 scale per row.
-    rows = 2 * cfg.n_layers * 16 * cfg.n_kv_heads
-    want_bytes = {None: n_blocks * rows * cfg.head_dim * 2,
-                  "int8": n_blocks * rows * (cfg.head_dim + 4),
-                  "fp8": n_blocks * rows * (cfg.head_dim + 4)}
+    rows, want_bytes = pool_reckoning(cfg, n_blocks)
     int8_blocks = blocks_for_bytes(want_bytes[None], cfg.n_layers, 16,
                                    cfg.n_kv_heads, cfg.head_dim,
                                    kv_quant="int8")
@@ -866,8 +895,8 @@ def paged_phase(torch, llama, fa, LLMServer, prompts, profile_dir):
 
 def profile_run(fn, label: str, out_dir: str,
                 all_threads: bool = False) -> None:
-    """Run ``fn`` once under torch.profiler; print the device busy share
-    of the wall time and write the op tables (by device time and by host
+    """Run ``fn`` once under torch.profiler; print and return the device
+    busy share of the wall time and write the op tables (by device time and by host
     time) to ``out_dir/profile_<label>.txt``.  ``all_threads`` records
     the host ops of every thread (actors run on their own)."""
     import torch
@@ -913,6 +942,7 @@ def profile_run(fn, label: str, out_dir: str,
           f"syncs {syncs}, top device ops: " + "; ".join(
               f"{e.key[:40]} {e.self_device_time_total / 1e3:.1f} ms"
               for e in top) + f" (tables in {path})")
+    return device_s / wall
 
 
 def launched(fa):
@@ -1511,8 +1541,10 @@ SERVE_LENGTHS = [24, 48, 77, 100, 128, 150, 180, 200]
 # timed repetitions, the handle-hop probes, and the device-trace window
 # with the new tokens of the round it traces.  A decode chunk's range
 # (16 eager steps, ~0.8 s at llama_440m) is recorded only if it begins
-# and ends inside the window, so the window holds two chunks' time and
-# the round runs four chunks.
+# and ends inside the window, so the window holds two chunks' time.
+# Rounds of four chunks run back to back until the capture returns: the
+# window opens only once the profiler has started, and its first start
+# in a process can outlast a whole round.
 PUT_BYTES, PUT_REPS, HOP_CALLS = 256 << 20, 10, 50
 TRACE_S, TRACE_NEW = 2.0, 64
 # The card's memory once a deployment is deleted, against before it.
@@ -1526,11 +1558,11 @@ def serve_prompts(torch):
             for n in SERVE_LENGTHS]
 
 
-def register_f32_preset(torch, llama):
-    """``llama_440m_f32``: llama_440m in f32, for the token-identity
-    gates (an engine reads its config from a preset)."""
-    llama.LlamaConfig.llama_440m_f32 = classmethod(
-        lambda cls, **kw: cls.llama_440m(dtype=torch.float32, **kw))
+def register_f32_preset(torch, llama, preset="llama_440m"):
+    """``<preset>_f32``: the preset in f32, for the token-identity gates
+    (an engine reads its config from a preset)."""
+    setattr(llama.LlamaConfig, preset + "_f32", classmethod(
+        lambda cls, **kw: getattr(cls, preset)(dtype=torch.float32, **kw)))
 
 
 def handle_round(handle, prompts, max_new):
@@ -1548,22 +1580,41 @@ def percentile(xs, q):
 
 
 def traced_round(devplane, run):
-    """Run one round of requests (``run()``) while the device plane
-    captures a trace of the process, begun once the prefills are under
-    way; returns (outs, busy share of the window, the number of
-    ``serve.decode_chunk`` ranges it holds)."""
+    """Run rounds of requests (``run()``) back to back while the device
+    plane captures a trace of the process, begun once the first round's
+    prefills are under way; the rounds go on until the capture has
+    returned.  Returns the first round's outs, the busy share of the
+    window, the ``serve.decode_chunk`` ranges and device events it holds,
+    the capture's wall time (the profiler's start, the window, its stop
+    and export) and the rounds begun meanwhile."""
     import io
     import threading
     import zipfile
 
-    done = {}
-    th = threading.Thread(target=lambda: done.update(outs=run()[0]))
+    rounds, errors = [], []
+    captured = threading.Event()
+
+    def go():
+        try:
+            while True:
+                rounds.append(run()[0])
+                if captured.is_set():
+                    return
+        except Exception as e:  # reported once the capture returns
+            errors.append(e)
+
+    th = threading.Thread(target=go)
     th.start()
     time.sleep(0.3)
-    trace = devplane.capture_device_trace(TRACE_S)
-    th.join()
-    if "outs" not in done:
-        fail("the traced round of requests did not finish")
+    t0 = time.perf_counter()
+    try:
+        trace = devplane.capture_device_trace(TRACE_S)
+    finally:
+        captured.set()
+        capture_s = time.perf_counter() - t0
+        th.join()
+    if errors or not rounds:
+        fail(f"the traced rounds of requests did not finish: {errors!r}")
     with zipfile.ZipFile(io.BytesIO(trace["data"])) as zf:
         events = json.loads(zf.read("trace.json"))["traceEvents"]
     spans = sorted((e["ts"], e["ts"] + e.get("dur", 0)) for e in events
@@ -1580,7 +1631,9 @@ def traced_round(devplane, run):
         elif b > end:
             busy += b - end
             end = b
-    return done["outs"], busy / (TRACE_S * 1e6), chunks
+    return {"outs": rounds[0], "busy": busy / (TRACE_S * 1e6),
+            "chunks": chunks, "events": len(spans), "capture_s": capture_s,
+            "rounds": len(rounds)}
 
 
 def runtime_phase(fa, torch, llama, LLMServer):
@@ -1845,20 +1898,22 @@ def runtime_phase(fa, torch, llama, LLMServer):
             if not ok:
                 fail("the device plane's gauges differ from "
                      "torch.cuda.memory_stats")
-            busy, chunks = {}, {}
-            for name, run in (
-                    ("direct", lambda: run_requests(server, prompts,
-                                                    TRACE_NEW)),
-                    ("deployed", lambda: handle_round(handle, prompts,
-                                                      TRACE_NEW))):
-                _, busy[name], chunks[name] = traced_round(devplane, run)
+            tr = {name: traced_round(devplane, run) for name, run in (
+                ("direct", lambda: run_requests(server, prompts,
+                                                TRACE_NEW)),
+                ("deployed", lambda: handle_round(handle, prompts,
+                                                  TRACE_NEW)))}
             phase("runtime", f"device busy share of a {TRACE_S:.1f} s "
                   f"trace during decode (capture_device_trace, kernels + "
-                  f"copies): direct {100 * busy['direct']:.1f}%, deployed "
-                  f"{100 * busy['deployed']:.1f}%; serve.decode_chunk "
-                  f"ranges in the traces: direct {chunks['direct']}, "
-                  f"deployed {chunks['deployed']}")
-            if not chunks["deployed"]:
+                  f"copies): " + ", ".join(
+                      f"{n} {100 * t['busy']:.1f}% ({t['events']} device "
+                      f"events; the capture took {t['capture_s']:.3f} s "
+                      f"over {t['rounds']} round(s) of {TRACE_NEW} "
+                      f"tokens)" for n, t in tr.items())
+                  + "; serve.decode_chunk ranges in the traces: direct "
+                  f"{tr['direct']['chunks']}, deployed "
+                  f"{tr['deployed']['chunks']}")
+            if not tr["deployed"]["chunks"]:
                 fail("the device trace taken during decode holds no "
                      "serve.decode_chunk range")
         finally:
@@ -4805,6 +4860,548 @@ def drivers_phase(fa, torch, llama, train_tok_s):
     return launches
 
 
+# Phase 27: llama3_8b, the JAX package's GQA preset (32 q heads over 8 kv
+# heads, an untied head over 128,256 tokens, rope theta 500,000), at full
+# width.  One flash call at the preset's full length.
+L3_B, L3_S = 1, 8192
+L3_SHAPE = (L3_B, 32, 8, L3_S, L3_S, 128)
+# The plain versions of 27a run over this many slices of the heads (each
+# slice whole kv groups): the plain backward holds five (Hq, S, S) f32
+# tensors at once, 43 GB at all 32 heads.
+L3_PLAIN_SLICES = 4
+# The engine of 27c and 27d: 8 slots of 2048 positions (bf16 K/V: 32
+# layers x 2 x 8 heads x 128 x 2 B = 128 KiB a position, 2.15 GB in all);
+# new tokens a request on the timed bf16 dense round and on every other.
+L3_SLOTS, L3_LEN = 8, 2048
+L3_SERVE_TOKENS, L3_PLANE_TOKENS = 32, 16
+L3_TRAIN_STEPS = 3
+# 27e's depth: the largest whose reckoned peak (l3_train_reckoning) is at
+# most this share of the card's memory.  The reckoning of the fused
+# AdamW's update, 28 B a param, read 71.46 GB against 71.39 reckoned at
+# llama_moe_1b's train step on an H100; the share leaves room for the
+# allocator's fragments and the CUDA context.
+L3_MEMORY_SHARE = 0.9
+
+
+def l3_train_reckoning(cfg, n_params, B, S):
+    """Bytes the dense train step (fused AdamW, remat "attn", bf16
+    compute, f32 params and moments) should need at its peak, the larger
+    of two moments.  The backward: the state (f32 params, gradients and
+    two moments, 16 B a param), the per-layer gradients that the unbind
+    of ``_layers`` holds until it stacks them (4 B a layer param), what
+    remat "attn" keeps a layer (its f32 input and the flash residuals q,
+    k, v, o in bf16 and the f32 lse), one layer's FFN recompute and its
+    gradients (h, u, silu(h), silu(h)*u in bf16, twice) and the head
+    (bf16 logits, their f32 copy, the f32 and bf16 gradients).  The
+    update: the state and three f32 temporaries of the params' size, 28 B
+    a param.  Returns (state bytes, backward bytes, update bytes).
+
+    At llama3_8b's width (embed, head and final norm 1,050,677,248
+    params, 218,112,000 a layer) and B=1 x S=8192: the head's four
+    tensors are 12.61 GB; 7 layers give 2,577,461,248 params, the
+    backward 63.95 GB and the update 72.17 GB; 8 layers 78.27 GB, above
+    0.9 of an 85.0 GB card.  So 27e runs 7 of the 32 layers."""
+    T, H = B * S, cfg.hidden_size
+    layer_params = n_params - 2 * cfg.vocab_size * H - H
+    state = 16 * n_params
+    kept = cfg.n_layers * T * (4 * H + 2 * (2 * cfg.q_dim + 2 * cfg.kv_dim)
+                               + 4 * cfg.n_heads)
+    ffn = 2 * 4 * 2 * T * cfg.intermediate_size
+    head = T * cfg.vocab_size * (2 + 4 + 4 + 2)
+    backward = state + 4 * layer_params + kept + ffn + head
+    return state, backward, state + 12 * n_params
+
+
+def by_head_slices(torch, fn, tensors, n):
+    """``fn`` over ``n`` slices of the heads (dim 1) of every tensor, the
+    outputs concatenated on dim 1: the plain versions compute each head
+    apart, so this is the same computation in less memory."""
+    outs = [fn(*(t.chunk(n, dim=1)[i] for t in tensors)) for i in range(n)]
+    return tuple(torch.cat(parts, dim=1) for parts in zip(*outs))
+
+
+# The prompt lengths of 27a's f32 check (from SERVE_LENGTHS, ragged
+# against every tile).
+L3_F32_LENGTHS = (77, 200)
+
+
+def l3_f32_fwd_check(fa, torch):
+    """27a. B1s, the f32 forward that 27c's first-token gate runs, at
+    that gate's shapes: (1, 32 q heads over 8 kv heads, S, S, 128)
+    causal, on (B, H, S, D) views of the model's layout, for ragged
+    prompt lengths L and for the lengths the model pads them to before
+    the call, against the plain forward (o and lse |d|_2/|ref|_2 <=
+    TOL_F32_REL)."""
+    pad = fa._PAD_MULTIPLE
+    lengths = [S for L in L3_F32_LENGTHS for S in (L, -(-L // pad) * pad)]
+    for i, L in enumerate(lengths):
+        shape = (1, 32, 8, L, L, 128)
+        q, k, v = attention_inputs(torch, shape, 272 + i, "bshd",
+                                   dtype=torch.float32)
+        before = dict(fa.launch_counts)
+        o, lse = fa._fwd(q, k, v, True)
+        ro, rl = fa._fwd_reference(q, k, v, True)
+        torch.cuda.synchronize()
+        counted = {n: c - before.get(n, 0)
+                   for n, c in fa.launch_counts.items()
+                   if c != before.get(n, 0)}
+        errs = {"o": rel_err(o, ro), "lse": rel_err(lse, rl)}
+        ok = (counted == {"flash_fwd_simple": 1}
+              and torch.isfinite(o).all().item()
+              and all(e <= TOL_F32_REL for e in errs.values()))
+        phase("llama3_8b", f"27a flash_fwd_simple {shape} bshd causal f32 "
+              f"(GQA group 4): o={errs['o']:.3e} lse={errs['lse']:.3e} "
+              f"(|d|/|ref| <= {TOL_F32_REL}); launches {counted} "
+              + ("ok" if ok else "MISMATCH"))
+        if not ok:
+            fail(f"27a: flash_fwd_simple disagrees with its plain version "
+                 f"at {shape} f32, or launched {counted}")
+
+
+def l3_kernel_phase(fa, torch):
+    """27a. B1s in f32 at 27c's shapes (:func:`l3_f32_fwd_check`), then
+    B1, B2 and B3 at llama3_8b's attention shape (bf16, B=1, Hq
+    32 over Hkv 8, S 8192, D 128, causal; (B, H, S, D) views of the
+    model's layout): B1 against its plain version (|do| <= TOL_O, |dlse|
+    <= TOL_LSE), the backward through ``_FlashCore`` (k/v expanded to the
+    q heads, B2, B3, dk/dv group-summed) against the plain backward on
+    the expanded heads group-summed alike (each gradient's |d|_2/|ref|_2
+    <= TOL_GRAD_REL); then each kernel's time against its bound, the
+    plain versions' and SDPA's with ``enable_gqa=True`` (a yardstick
+    only), and the whole ``_FlashCore`` backward's."""
+    l3_f32_fwd_check(fa, torch)
+    B, Hq, Hkv, S, _, D = L3_SHAPE
+    group = Hq // Hkv
+    n = L3_PLAIN_SLICES
+    torch.cuda.empty_cache()
+    q, k, v = attention_inputs(torch, L3_SHAPE, 270, "bshd")
+    do = attention_inputs(torch, L3_SHAPE, 271, "bshd", scaled=False)[0]
+    o, lse = fa._fwd(q, k, v, True)
+
+    def plain_fwd(q, k, v):
+        return fa._fwd_reference(q, k, v, True)
+
+    o_ref, lse_ref = by_head_slices(torch, plain_fwd, (q, k, v), n)
+    torch.cuda.synchronize()
+    d_o = (o.float() - o_ref.float()).abs().max().item()
+    d_lse = (lse - lse_ref).abs().max().item()
+    ok = (torch.isfinite(o).all().item() and d_o <= TOL_O
+          and d_lse <= TOL_LSE)
+    phase("llama3_8b", f"27a flash_fwd {L3_SHAPE} bshd causal (GQA group "
+          f"{group}): max|do|={d_o:.3e} (tol {TOL_O}) max|dlse|="
+          f"{d_lse:.3e} (tol {TOL_LSE}) {'ok' if ok else 'MISMATCH'}")
+    if not ok:
+        fail("27a: flash_fwd disagrees with its plain version at GQA "
+             "group 4, S 8192")
+    del o_ref, lse_ref
+
+    ins = [t.detach().requires_grad_() for t in (q, k, v)]
+    got = torch.autograd.grad(fa._FlashCore.apply(*ins, True), ins, do)
+    ke, ve = (t.repeat_interleave(group, dim=1) for t in (k, v))
+
+    def plain_bwd(q, k, v, o, lse, do):
+        return fa._bwd_reference(q, k, v, o, lse, do, True)
+
+    dq, dk, dv = by_head_slices(torch, plain_bwd, (q, ke, ve, o, lse, do),
+                                n)
+    dk, dv = (t.reshape(B, Hkv, group, S, D).sum(dim=2) for t in (dk, dv))
+    torch.cuda.synchronize()
+    errs = {}
+    for name, g_, r in zip(("dq", "dk", "dv"), got, (dq, dk, dv)):
+        if g_.shape != r.shape or not torch.isfinite(g_).all():
+            fail(f"27a: {name} not finite / wrong shape")
+        errs[name] = grad_err(g_, r)
+    ok = all(rel <= TOL_GRAD_REL for _, rel in errs.values())
+    phase("llama3_8b", f"27a flash_bwd {L3_SHAPE} bshd causal via core "
+          f"(expand to {Hq} heads, B2, B3, group-sum): " + " ".join(
+              f"{g_}: max|d|={a:.3e} |d|/|ref|={rel:.3e}"
+              for g_, (a, rel) in errs.items())
+          + f" (tol |d|/|ref| <= {TOL_GRAD_REL}) "
+          + ("ok" if ok else "MISMATCH"))
+    if not ok:
+        fail("27a: flash_bwd disagrees with its plain version at GQA "
+             "group 4, S 8192")
+    del got, dq, dk, dv, ins
+    torch.cuda.empty_cache()
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    times = {"flash_fwd": time_ms(lambda: fa._fwd(q, k, v, True), reps=10)}
+    plain = {"flash_fwd": time_ms(
+        lambda: by_head_slices(torch, plain_fwd, (q, k, v), n), reps=2,
+        rounds=3)}
+    args = fa._BwdArgs(q, ke, ve, o, lse, do, True)
+    _, delta = fa._bwd_dq(args)
+    times["flash_bwd_dq"] = time_ms(lambda: fa._bwd_dq(args), reps=10)
+    times["flash_bwd_dkdv"] = time_ms(lambda: fa._bwd_dkdv(args, delta),
+                                      reps=10)
+    plain["bwd"] = time_ms(lambda: by_head_slices(
+        torch, plain_bwd, (q, ke, ve, o, lse, do), n), reps=2, rounds=3)
+    ins = [t.detach().requires_grad_() for t in (q, k, v)]
+    out = fa._FlashCore.apply(*ins, True)
+    core_ms = time_ms(lambda: torch.autograd.grad(out, ins, do,
+                                                  retain_graph=True),
+                      reps=10)
+    lib_fwd = time_ms(lambda: sdpa(q, k, v, is_causal=True, scale=1.0,
+                                   enable_gqa=True), reps=10)
+    qq, kk, vv = (t.detach().requires_grad_() for t in (q, k, v))
+    sd = sdpa(qq, kk, vv, is_causal=True, scale=1.0, enable_gqa=True)
+    lib_bwd = time_ms(lambda: torch.autograd.grad(
+        sd, (qq, kk, vv), do, retain_graph=True), reps=10)
+    # B2 and B3 run on k/v expanded to the q heads: their own inputs.
+    costs = {"flash_fwd": attention_cost(B, Hq, S, S, D, True,
+                                         kv_heads=Hkv),
+             **attention_bwd_cost(B, Hq, S, S, D, True)}
+    for name, ms in times.items():
+        flops, nbytes, b_ms, b_by = costs[name]
+        heads = f"{Hq}/{Hkv}" if name == "flash_fwd" else f"{Hq}"
+        phase("llama3_8b", f"27a {name} ({B},{heads},{S},{D}) "
+              f"causal bf16: {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), "
+              f"bound {b_ms:.4f} ms ({b_by}; {flops:.3e} FLOP, "
+              f"{nbytes:.3e} B; {100 * b_ms / ms:.1f}% of it)")
+    phase("llama3_8b", f"27a plain forward {plain['flash_fwd']:.4f} ms, "
+          f"plain backward {plain['bwd']:.4f} ms (each over {n} head "
+          f"slices); _FlashCore backward (expand, B2, B3, group-sum) "
+          f"{core_ms:.4f} ms against B2 + B3 "
+          f"{times['flash_bwd_dq'] + times['flash_bwd_dkdv']:.4f} ms; sdpa "
+          f"enable_gqa forward {lib_fwd:.4f} ms, backward {lib_bwd:.4f} ms "
+          f"(a yardstick: the port never calls it)")
+    del q, k, v, do, o, lse, ke, ve, args, delta, ins, out, qq, kk, vv, sd
+    torch.cuda.empty_cache()
+
+
+def l3_forward_phase(fa, torch, llama):
+    """27b. The full-depth forward: llama3_8b, 32 layers, bf16, B=1 x
+    S=8192 on flash (32 B1 launches, finite logits) and on dot, both
+    against one f32 dot reference from the same weights (f32 init, then
+    freed; ``init_params`` in bf16 draws the same numbers and rounds
+    them): the flash path's error may exceed dot's by TOL_ERR_RATIO at
+    most (phase 5's gate).  Returns the flash forward's launches."""
+    cfg = llama.LlamaConfig.llama3_8b(attention_impl="flash")
+    g = torch.Generator(device="cuda")
+    g.manual_seed(27)
+    tokens = torch.randint(0, cfg.vocab_size, (L3_B, L3_S), generator=g,
+                           device="cuda")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        p32 = llama.init_params(cfg, seed=0)
+        n_params = llama.param_count(p32)
+        ref = llama.forward(p32, tokens, llama.LlamaConfig.llama3_8b(
+            dtype=torch.float32))
+        del p32
+        p16 = llama.init_params(cfg, seed=0, dtype=torch.bfloat16)
+        llama.forward(p16, tokens, cfg)  # warm
+        torch.cuda.synchronize()
+        fa.reset_launch_counts()
+        t0 = time.perf_counter()
+        logits = llama.forward(p16, tokens, cfg)
+        torch.cuda.synchronize()
+        fwd_s = time.perf_counter() - t0
+        launches = launched(fa)
+        t0 = time.perf_counter()
+        dot = llama.forward(p16, tokens, llama.LlamaConfig.llama3_8b())
+        torch.cuda.synchronize()
+        dot_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    if logits.shape != (L3_B, L3_S, cfg.vocab_size) or \
+            not torch.isfinite(logits).all():
+        fail("27b: llama3_8b flash logits not finite / wrong shape")
+    if launches != {"flash_fwd": cfg.n_layers}:
+        fail(f"27b: the forward launched {launches}, expected flash_fwd "
+             f"{cfg.n_layers} times")
+    errs = {}
+    for name, out in (("flash", logits), ("dot", dot)):
+        d = (out.float() - ref).abs()
+        errs[name] = (d.max().item(), d.mean().item(),
+                      (out.argmax(-1) == ref.argmax(-1)).float().mean()
+                      .item())
+        del d
+    ratio = max(errs["flash"][0] / errs["dot"][0],
+                errs["flash"][1] / errs["dot"][1])
+    ok = ratio <= TOL_ERR_RATIO
+    tok = L3_B * L3_S
+    phase("llama3_8b", f"27b llama3_8b ({n_params} params, {cfg.n_layers} "
+          f"layers) bf16 "
+          f"B={L3_B} S={L3_S}: flash {fwd_s * 1e3:.1f} ms ({tok / fwd_s:.0f}"
+          f" tok/s, 2N share {100 * 2 * n_params * tok / fwd_s / PEAK_BF16_FLOPS:.1f}"
+          f"% of the bf16 peak), dot {dot_s * 1e3:.1f} ms, launches "
+          f"{launches}, peak memory {peak / 1e9:.2f} GB (the f32 reference "
+          f"included); vs the f32 dot reference: " + ", ".join(
+              f"{n} max|d|={e[0]:.3e} mean|d|={e[1]:.3e} argmax agree "
+              f"{e[2]:.4f}" for n, e in errs.items())
+          + f"; flash/dot error ratio {ratio:.3f} (tol {TOL_ERR_RATIO}) "
+          + ("ok" if ok else "MISMATCH"))
+    if not ok:
+        fail("27b: the llama3_8b flash forward is less accurate than dot "
+             "attention")
+    del logits, dot, ref, p16, tokens
+    torch.cuda.empty_cache()
+    return launches
+
+
+def agreement(got, ref):
+    """The share of positions where two runs' tokens agree."""
+    pairs = [(a, b) for x, y in zip(got, ref) for a, b in zip(x, y)]
+    return sum(a == b for a, b in pairs) / max(1, len(pairs))
+
+
+def l3_serve_phase(fa, torch, llama, LLMServer, prompts, profile_dir):
+    """27c-d. ``LLMServer(model_preset="llama3_8b", max_slots=8,
+    max_len=2048)`` at full width and depth (its own f32 init, cast to
+    bf16): 8 concurrent requests, TTFT min/p50/p99, decode tok/s and the
+    card's busy share over a second round.  The bf16 paged planes (block
+    16, the default 1025 blocks; paged, int8, fp8, spec_k=4 with the
+    default 8-layer self-draft) on its weights answer the same requests:
+    token agreement with the dense engine, pool bytes against the
+    reckoning, prefix hits.  Then in f32: an engine whose first tokens
+    equal the argmax of the f32 flash forward (B1s), and dense == paged
+    == paged+spec tokens, a warm paged run == the cold one with prefix
+    hits.  Returns the f32 forwards' launches."""
+    from tempfile import TemporaryDirectory
+
+    cfg = llama.LlamaConfig.llama3_8b()
+    base = dict(max_slots=L3_SLOTS, max_len=L3_LEN, seed=0)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    server = LLMServer(model_preset="llama3_8b", **base)
+    init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated()
+    try:
+        outs, wall = run_requests(server, prompts, L3_SERVE_TOKENS)
+        with TemporaryDirectory() as tmp:
+            share = profile_run(
+                lambda: run_requests(server, prompts, L3_SERVE_TOKENS),
+                "llama3_8b_serve_bf16", profile_dir or tmp)
+        p16 = server.params
+    finally:
+        server.shutdown()
+    del server
+    if any(len(o["tokens"]) != L3_SERVE_TOKENS for o in outs):
+        fail(f"27c: LLMServer returned {[len(o['tokens']) for o in outs]} "
+             f"tokens")
+    ttft = [o["ttft_ms"] for o in outs]
+    new = sum(len(o["tokens"]) - 1 for o in outs)
+    decode = new / (wall - max(ttft) / 1e3)
+    kv_bytes = 2 * cfg.n_layers * cfg.n_kv_heads * cfg.head_dim * 2
+    phase("llama3_8b", f"27c LLMServer(llama3_8b, max_slots={L3_SLOTS}, "
+          f"max_len={L3_LEN}) bf16: built in {init_s:.1f}s (f32 init + "
+          f"cast + warm-up), peak memory {init_peak / 1e9:.2f} GB; 8 "
+          f"requests x {L3_SERVE_TOKENS} tokens in {wall:.3f}s: TTFT min/"
+          f"p50/p99 {min(ttft):.1f}/{percentile(ttft, 0.5):.1f}/"
+          f"{percentile(ttft, 0.99):.1f} ms, decode {decode:.1f} tok/s; "
+          f"card busy {100 * share:.1f}% over a second round; K/V "
+          f"{kv_bytes} B a position")
+    dense16 = [o["tokens"][:L3_PLANE_TOKENS] for o in outs]
+
+    # 27d, bf16: the paged planes on the same weights.
+    _, want_bytes = pool_reckoning(cfg, 1 + L3_SLOTS * (L3_LEN // 16))
+    planes = {"paged": {}, "paged+int8": dict(kv_quant="int8"),
+              "paged+fp8": dict(kv_quant="fp8"),
+              "paged+spec": dict(spec_k=4)}
+    for name, kw in planes.items():
+        server = LLMServer(model_preset="llama3_8b", params=p16,
+                           paged=True, block_size=16, warmup=False,
+                           **base, **kw)
+        # The hit counter is the process's (labelled by deployment):
+        # this plane's hits are its rise over the plane's requests.
+        hits0 = server.kv_stats()["ray_tpu_prefix_cache_hits"].get("llm", 0)
+        try:
+            outs, wall = run_requests(server, prompts, L3_PLANE_TOKENS)
+            if name == "paged":
+                run_requests(server, prompts[:1], L3_PLANE_TOKENS)
+            stats = server.kv_stats()
+        finally:
+            server.shutdown()
+        del server
+        hits = stats["ray_tpu_prefix_cache_hits"].get("llm", 0) - hits0
+        got = [o["tokens"] for o in outs]
+        if any(len(t) != L3_PLANE_TOKENS for t in got):
+            fail(f"27d: {name} returned {[len(t) for t in got]} tokens")
+        line = (f"27d bf16 {name}: 8 requests x {L3_PLANE_TOKENS} tokens "
+                f"(cold, no warm-up) in {wall:.3f}s, token agreement with "
+                f"the dense engine {agreement(got, dense16):.4f}, pool "
+                f"{stats['pool_bytes']} B (reckoned "
+                f"{want_bytes[kw.get('kv_quant')]}), prefix hits {hits}"
+                + (" (a prompt repeated)" if name == "paged" else ""))
+        if "spec" in stats:
+            sp = stats["spec"]
+            line += (f", spec accept rate {sp['accept_rate']} "
+                     f"({sp['accepted']} of {sp['proposed']})")
+        phase("llama3_8b", line)
+        if stats["pool_bytes"] != want_bytes[kw.get("kv_quant")]:
+            fail(f"27d: {name} pool holds {stats['pool_bytes']} B, "
+                 f"reckoned {want_bytes[kw.get('kv_quant')]}")
+        if name == "paged" and hits < 1:
+            fail("27d: a repeated prompt never hit the prefix cache")
+    del p16
+    torch.cuda.empty_cache()
+
+    # 27c-d, f32: the first tokens against the forward's argmax, then
+    # dense == paged == paged+spec.
+    register_f32_preset(torch, llama, "llama3_8b")
+    f32_cfg = llama.LlamaConfig.llama3_8b(dtype=torch.float32,
+                                          attention_impl="flash")
+    f32 = dict(base, model_preset="llama3_8b_f32", warmup=False)
+
+    def tokens(server, ps):
+        outs, _ = run_requests(server, ps, L3_PLANE_TOKENS)
+        if any(len(o["tokens"]) != L3_PLANE_TOKENS for o in outs):
+            fail(f"27d: returned {[len(o['tokens']) for o in outs]} tokens")
+        return [o["tokens"] for o in outs]
+
+    server = LLMServer(**f32)
+    try:
+        dense = tokens(server, prompts)
+        p32 = server.params
+    finally:
+        server.shutdown()
+    del server
+    firsts = [t[0] for t in dense]
+    fa.reset_launch_counts()
+    with torch.no_grad():
+        expect = [int(llama.forward(p32, torch.tensor([p], device="cuda"),
+                                    f32_cfg)[0, -1].argmax())
+                  for p in prompts]
+    launches = launched(fa)
+    phase("llama3_8b", f"27c llama3_8b f32 first tokens {firsts} vs the f32 "
+          f"flash forward's argmax {expect}: "
+          f"{'ok' if firsts == expect else 'MISMATCH'}; launches {launches}")
+    if firsts != expect:
+        fail("27c: LLMServer's first tokens differ from the forward's argmax")
+    if launches != {"flash_fwd_simple": cfg.n_layers * len(prompts)}:
+        fail(f"27c: the f32 forwards launched {launches}")
+    server = LLMServer(params=p32, paged=True, block_size=16, **f32)
+    try:
+        cold = tokens(server, prompts)
+        hits0 = server.kv_stats()["ray_tpu_prefix_cache_hits"].get("llm", 0)
+        warm = tokens(server, prompts)
+        hits = server.kv_stats()["ray_tpu_prefix_cache_hits"]["llm"] - hits0
+    finally:
+        server.shutdown()
+    del server
+    phase("llama3_8b", f"27d f32 paged: prefix hits on the warm run {hits}")
+    gate_same("27d f32 paged == dense", cold, dense, prompts, p32, f32_cfg)
+    gate_same("27d f32 paged warm == cold", warm, cold)
+    if hits < 1:
+        fail("27d: the warm run never hit the prefix cache")
+    server = LLMServer(params=p32, paged=True, block_size=16, spec_k=4,
+                       **f32)
+    try:
+        got = tokens(server, prompts)
+        sp = server.kv_stats()["spec"]
+    finally:
+        server.shutdown()
+    del server
+    phase("llama3_8b", f"27d f32 paged+spec (self-draft, "
+          f"{cfg.n_layers // 4} layers): accept rate {sp['accept_rate']} "
+          f"({sp['accepted']} of {sp['proposed']})")
+    gate_same("27d f32 paged+spec == dense", got, dense, prompts, p32,
+              f32_cfg)
+    del p32
+    torch.cuda.empty_cache()
+    return launches
+
+
+def l3_train_phase(fa, torch, llama, kind):
+    """27e. llama3_8b trained at full width through init_train_state /
+    make_train_step (fused AdamW, remat "attn", flash, bf16 compute with
+    f32 params and moments) at B=1 x S=8192, with the depth cut to the
+    largest whose :func:`l3_train_reckoning` fits (L3_MEMORY_SHARE of
+    the card): L3_TRAIN_STEPS steps, finite and falling loss, B1, B2 and
+    B3 each launched n_layers times a step, peak memory against the
+    reckoning, tok/s and the 6N share of the card's bf16 peak.  Returns
+    the steps' launches."""
+    from ray_tpu_torch.observability.device import peak_bf16_flops
+
+    total = torch.cuda.get_device_properties(0).total_memory
+
+    def cfg_at(n):
+        return llama.LlamaConfig.llama3_8b(
+            n_layers=n, attention_impl="flash", remat_policy="attn")
+
+    def reckon(n):
+        c = cfg_at(n)
+        return l3_train_reckoning(c, llama.param_count(
+            llama.param_shapes(c)), L3_B, L3_S)
+
+    depth = max(n for n in range(1, 33)
+                if max(reckon(n)[1:]) <= L3_MEMORY_SHARE * total)
+    cfg = cfg_at(depth)
+    state_b, bwd_b, update_b = reckon(depth)
+    g = torch.Generator(device="cuda")
+    g.manual_seed(28)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (L3_B, L3_S),
+                                     generator=g, device="cuda")}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    state = llama.init_train_state(cfg, seed=0, fused=True)
+    n_params = llama.param_count(state["params"])
+    step = llama.make_train_step(cfg, fused=True)
+    metrics, per_step, times = [], [], []
+    for _ in range(L3_TRAIN_STEPS):
+        fa.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        per_step.append(launched(fa))
+        metrics.append(m)
+    peak = torch.cuda.max_memory_allocated()
+    losses = [m["loss"].item() for m in metrics]
+    gnorms = [m["grad_norm"].item() for m in metrics]
+    step_s = min(times[1:])
+    tok_s = L3_B * (L3_S - 1) / step_s
+    peak_flops = peak_bf16_flops(kind) or PEAK_BF16_FLOPS
+    phase("llama3_8b", f"27e llama3_8b cut to {depth} of 32 layers "
+          f"({n_params} params; full width) fused AdamW remat "
+          f"{cfg.remat_policy!r} B={L3_B} S={L3_S}: steps "
+          + "/".join(f"{t * 1e3:.1f}" for t in times)
+          + f" ms, {tok_s:.0f} tok/s (best of steps 2-{L3_TRAIN_STEPS}), "
+          f"mfu_6n {6 * n_params * tok_s / peak_flops:.4f} of "
+          f"{peak_flops / 1e12:.0f} TFLOP/s; peak memory {peak / 1e9:.2f} "
+          f"GB against the reckoning {max(bwd_b, update_b) / 1e9:.2f} GB "
+          f"(backward {bwd_b / 1e9:.2f}, fused update {update_b / 1e9:.2f}"
+          f", state {state_b / 1e9:.2f}; {L3_MEMORY_SHARE} of the card's "
+          f"{total / 1e9:.2f} GB admits {depth} layers)")
+    phase("llama3_8b", "27e losses " + " ".join(f"{x:.4f}" for x in losses)
+          + "; grad norms " + " ".join(f"{x:.3f}" for x in gnorms)
+          + f"; launches per step {per_step}")
+    if not all(math.isfinite(x) for x in losses + gnorms):
+        fail("27e: llama3_8b training produced a non-finite loss or norm")
+    if not losses[-1] < losses[0]:
+        fail(f"27e: llama3_8b loss did not fall: {losses}")
+    want = {"flash_fwd": depth, "flash_bwd_dq": depth,
+            "flash_bwd_dkdv": depth}
+    if any(p != want for p in per_step):
+        fail(f"27e: flash kernels launched {per_step} per step, expected "
+             f"{want}")
+    del state, step, metrics, batch
+    torch.cuda.empty_cache()
+    total_launches = {}
+    for p in per_step:
+        _count_into(total_launches, p)
+    return total_launches
+
+
+def llama3_phase(fa, torch, llama, LLMServer, prompts, kind,
+                 profile_dir=None):
+    """27. llama3_8b (:func:`l3_kernel_phase`, :func:`l3_forward_phase`,
+    :func:`l3_serve_phase`, :func:`l3_train_phase`), each part freeing
+    the one before it.  Returns the main path's flash launches."""
+    t_phase = time.perf_counter()
+    l3_kernel_phase(fa, torch)
+    launches = {}
+    _count_into(launches, l3_forward_phase(fa, torch, llama))
+    _count_into(launches, l3_serve_phase(fa, torch, llama, LLMServer,
+                                         prompts, profile_dir))
+    _count_into(launches, l3_train_phase(fa, torch, llama, kind))
+    phase("llama3_8b", f"phase 27 in {time.perf_counter() - t_phase:.1f}s; "
+          f"flash launches {launches}")
+    return launches
+
+
 def main() -> None:
     t_script = time.perf_counter()
     import torch
@@ -5272,6 +5869,10 @@ def main() -> None:
     moe_launches = moe_train_phase(fa, torch, llama, profile_dir)
     # 26. The drivers of ray_tpu_torch/tools/, against phase 10's tok/s.
     drivers_launches = drivers_phase(fa, torch, llama, tok_s)
+    # 27. llama3_8b: its kernels' shape, the full-depth forward, the
+    # engine on every plane, training at full width.
+    l3_launches = llama3_phase(fa, torch, llama, LLMServer, prompts, kind,
+                               profile_dir)
     phase("launches", f"ring (bf16 chunk schedule) {ring_launches['bfloat16']}"
           f", ring f32 {ring_launches['float32']}, f32 model path "
           f"{c1_launches['float32']}, f16 model path "
@@ -5292,7 +5893,8 @@ def main() -> None:
                      + wf_launches["flash_fwd"]
                      + auto_launches["flash_fwd"]
                      + chaos_launches.get("flash_fwd", 0)
-                     + drivers_launches["flash_fwd"]),
+                     + drivers_launches["flash_fwd"]
+                     + l3_launches["flash_fwd"]),
         "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": library_ms}]
@@ -5305,7 +5907,7 @@ def main() -> None:
             "launches": (train_launches[name] + trainer_launches[name]
                          + pipe_launches["b"][name] + wf_launches[name]
                          + chaos_launches.get(name, 0)
-                         + drivers_launches[name]),
+                         + drivers_launches[name] + l3_launches[name]),
             "max_abs_err": err,
             "ms": bwd_ms[name], "plain_ms": bwd_plain_ms,
             "bound_ms": bwd_cost[name][2], "bound_by": bwd_cost[name][3],
@@ -5322,7 +5924,8 @@ def main() -> None:
                 "source": f"ray_tpu_torch/ops/csrc/{source}",
                 "replaces": f"ray_tpu/ops/flash_attention.py:{line}",
                 "launches": (c1_launches[path].get(name + suffix, 0)
-                             + pipe_launches["a"].get(name + suffix, 0)),
+                             + pipe_launches["a"].get(name + suffix, 0)
+                             + l3_launches.get(name + suffix, 0)),
                 "max_abs_err": t["max_abs_err"],
                 "ms": t["ms"], "plain_ms": t["plain_ms"],
                 "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],

@@ -39,6 +39,7 @@ raise ``DeviceUnavailableError`` (``core/device.py``).
 from __future__ import annotations
 
 import logging
+import time
 from typing import Any, Dict, List, Optional
 
 import numpy as np
@@ -231,10 +232,18 @@ class _StageWorker:
 
 
 def _first_failure(refs) -> Optional[BaseException]:
-    """The error of the first of ``refs`` that finished with a typed
-    error, or None; refs still running are passed over."""
+    """The error of the first of ``refs``, in order, that finished with a
+    typed error, or None.  Each ref is waited for until it finishes: a
+    killed stage's queued calls fail at once, but the call it died in,
+    whose error names the edge, stores that error only later.  One
+    channel read timeout bounds the waits together; a ref still running
+    after it is passed over."""
+    from ray_tpu_torch.experimental.channel import DEFAULT_TIMEOUT_S
+
+    deadline = time.monotonic() + DEFAULT_TIMEOUT_S
     for ref in refs:
-        ready, _ = ray_tpu_torch.wait([ref], timeout=0)
+        left = max(0.0, deadline - time.monotonic())
+        ready, _ = ray_tpu_torch.wait([ref], timeout=left)
         if not ready:
             continue
         try:

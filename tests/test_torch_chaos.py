@@ -382,6 +382,63 @@ class TestPipelineChaos:
         assert "pp-fwd0" in str(ei.value), str(ei.value)
         assert "method=forward" in str(ei.value), str(ei.value)
 
+    def test_killed_stage_error_names_the_edge_when_its_call_settles_last(
+            self, ray_start_regular, monkeypatch):
+        """Fault C18: the choice of the wave's first failed call probed
+        each ref once and passed over those still running, so under load,
+        when the call that broke on ``pp-fwd0`` had not yet stored its
+        error as the step raised, a later call's bare "actor is dead" was
+        raised.  Here that call reports "not ready" for 0.2 s after it
+        first shows finished, every time (a wait with a longer timeout
+        sleeps until then, as the real one would): the step must still
+        name the edge."""
+        _channels_or_skip()
+        cfg, pipe = _debug_pipe()
+        tokens = np.random.default_rng(0).integers(
+            0, cfg.vocab_size, (4, 16)).astype(np.int32)
+        real_wait = ray_tpu_torch.wait
+        hold_s = 0.2
+        released_at = {}
+
+        def breaks_on_the_edge(ref):
+            try:
+                ray_tpu_torch.get(ref)
+            except (ActorDiedError, ChannelError) as e:
+                return "pp-fwd0" in str(e) and "method=forward" in str(e)
+            return False
+
+        def late_wait(refs, *, timeout=None, **kw):
+            t_in = time.monotonic()
+            ready, rest = real_wait(refs, timeout=timeout, **kw)
+            late = []
+            for r in ready:
+                if r not in released_at and breaks_on_the_edge(r):
+                    released_at[r] = time.monotonic() + hold_s
+                if r in released_at and time.monotonic() < released_at[r]:
+                    late.append(r)
+            if late:
+                until = max(released_at[r] for r in late)
+                if timeout is not None:
+                    until = min(until, t_in + timeout)
+                time.sleep(max(0.0, until - time.monotonic()))
+                late = [r for r in late
+                        if time.monotonic() < released_at[r]]
+            return ([r for r in ready if r not in late],
+                    list(rest) + late)
+
+        try:
+            pipe.train_step(tokens)
+            monkeypatch.setattr(ray_tpu_torch, "wait", late_wait)
+            with chaos.schedule().kill_at_ring_write("pp-fwd0", nth=3):
+                with pytest.raises((ActorDiedError, ChannelError)) as ei:
+                    pipe.train_step(tokens)
+        finally:
+            monkeypatch.undo()
+            pipe.shutdown()
+        assert "pp-fwd0" in str(ei.value), str(ei.value)
+        assert "method=forward" in str(ei.value), str(ei.value)
+        assert released_at, "the call that broke on pp-fwd0 was not held"
+
     def test_killed_stage_releases_its_instance(self, ray_start_regular,
                                                 monkeypatch):
         """Fault C14: a failed call's stored error kept the frames it was

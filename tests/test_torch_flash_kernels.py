@@ -67,12 +67,15 @@ def _randn(g, layout, b, h, s, d):
     ((1, 4, 4, 100, 190, 64), False),
     ((1, 2, 1, 77, 77, 16), True),
     ((1, 4, 2, 100, 0, 64), False),
+    ((1, 32, 8, 2048, 2048, 128), True),
 ])
 def test_kernel_matches_plain_version_on_card(shape, causal, layout):
     """The sm_90a forward kernel against its plain version on the same
     bf16 inputs, on contiguous (B, H, S, D) tensors and on (B, H, S, D)
     views of the model's (B, S, H, D) tensors, which it reads through
-    their strides; with Sk = 0 every row is fully masked."""
+    their strides; with Sk = 0 every row is fully masked.  The last case
+    is llama3_8b's attention (32 q heads over 8 kv heads) at a mid
+    length."""
     _needs_card()
     B, Hq, Hkv, Sq, Sk, D = shape
     g = torch.Generator(device="cuda").manual_seed(0)
@@ -97,18 +100,26 @@ def test_kernel_matches_plain_version_on_card(shape, causal, layout):
     ((1, 2, 100, 190, 64), True),
     ((2, 3, 50, 50, 128), True),
     ((2, 2, 200, 100, 128), False),
+    ((1, 32, 2048, 2048, 128, 8), True),
 ])
 def test_bwd_kernels_match_plain_version_on_card(shape, causal, layout):
     """dq (B2) and dk/dv (B3) against ``_bwd_reference`` on the same bf16
     inputs, with ragged tiles on both axes, each launch counter rising by
     one per call.  Sq = 50 leaves B2's second consumer warpgroup (rows
     64..127) without rows; Sq = 130 gives B2 a block whose second
-    warpgroup has none; Sk = 100 and 190 end inside a 64-key tile."""
+    warpgroup has none; Sk = 100 and 190 end inside a 64-key tile.  A
+    sixth entry is a kv head count: k/v are drawn with that many heads
+    and expanded to q's as ``_FlashCore`` does (the last case is
+    llama3_8b's attention, group 4, at a mid length)."""
     _needs_card()
-    B, H, Sq, Sk, D = shape
+    B, H, Sq, Sk, D, *kv = shape
+    Hkv = kv[0] if kv else H
     g = torch.Generator(device="cuda").manual_seed(1)
     q = _randn(g, layout, B, H, Sq, D) * D ** -0.5
-    k, v = _randn(g, layout, B, H, Sk, D), _randn(g, layout, B, H, Sk, D)
+    k, v = (_randn(g, layout, B, Hkv, Sk, D),
+            _randn(g, layout, B, Hkv, Sk, D))
+    if Hkv != H:
+        k, v = (t.repeat_interleave(H // Hkv, dim=1) for t in (k, v))
     do = _randn(g, layout, B, H, Sq, D)
     o, lse = tfa._fwd(q, k, v, causal)
     before = dict(tfa.launch_counts)
