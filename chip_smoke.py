@@ -40,6 +40,12 @@ through the entry points a user would call, and checks the results:
    and fixed point on real K rows, with the card's bytes equal to the
    CPU's; pool pressure (preemption, f32 tokens equal to the unpressured
    run, the allocator back to the trie's count, typed shedding);
+6c. the paged decode kernel (:func:`paged_decode_phase`) against its
+   plain version and timed at the serve cell's shapes (14 of 32 slots at
+   ~1,700 positions, all 32 at 4,096; Mistral-7B's 8 kv heads of 128, 4
+   query heads each, bf16) beside its bound, the plain version and SDPA
+   over the gathered layout; then a paged llama_440m engine whose
+   launches equal its decode steps times its layers;
 7. flash backward kernels (dq, dk/dv) vs their plain version, bf16, at
    four shapes, one of them through autograd and one through GQA;
 8. their times vs their bounds, the plain version and SDPA's backward;
@@ -353,6 +359,9 @@ MOE_ACTIVE_PARAMS = 737_657_856
 DESIGN = "wgmma+tma, warp-specialised"
 DESIGN_SIMPLE = ("cuda-core f32 fma, 8x8 register micro-tiles fed by "
                  "128-bit shared loads, cp.async ring, 256 threads")
+DESIGN_PAGED = ("in-place reads through the block tables, 16-byte loads, "
+                "the G query heads of a kv head in registers, split-K with "
+                "a log-sum-exp combine")
 
 
 def fail(msg: str) -> None:
@@ -659,6 +668,169 @@ def pool_reckoning(cfg, n_blocks, block_size=16):
     return rows, {None: n_blocks * rows * cfg.head_dim * 2,
                   "int8": n_blocks * rows * (cfg.head_dim + 4),
                   "fp8": n_blocks * rows * (cfg.head_dim + 4)}
+
+
+# Phase 6c: the paged decode kernel at the serve cell's shapes (Mistral-7B:
+# 8 kv heads of 128 with 4 query heads each, bf16, 16-token blocks, 32
+# slots, the cell's pool of 8,193 blocks x 32 layers): (label, active
+# slots, median length, table blocks).  Lengths are drawn from the seed
+# around the median, clipped to the table.
+PAGED_DECODE_CASES = (("14 of 32 slots at ~1,700", 14, 1700, 128),
+                      ("32 of 32 slots at 4,096", 32, 4096, 256))
+PAGED_DECODE_POOL = (8193, 32, 16, 8, 4, 128)  # N, L, bs, Hkv, G, D
+# Kernel against its plain version at these shapes, bf16, the output as a
+# whole (tests/test_torch_paged_decode.py TOL_REL): the plain version
+# rounds the probabilities to bf16 before the product, the kernel keeps
+# them in f32, and both round the output to bf16.
+TOL_PAGED_DECODE_REL = 1e-2
+
+
+def paged_decode_cost(lens, active, nb, bs, Hkv, G, D, elem=2):
+    """(FLOP, bytes, bound ms, bound by) of one paged decode call: each
+    active slot's keys 0..p inside its table (q.k and p v, 2 FLOP each a
+    key, query head and dim), those keys' K and V rows read once, the
+    active queries read and every slot's output written once."""
+    keys = sum(min(int(p) + 1, nb * bs) for p, a in zip(lens, active) if a)
+    n_active = sum(bool(a) for a in active)
+    flops = 4 * keys * Hkv * G * D
+    nbytes = (2 * keys * Hkv * D + (n_active + len(lens)) * Hkv * G * D) * elem
+    return (flops, nbytes) + bound(flops, nbytes)
+
+
+def paged_decode_case(np, rng, B, N, bs, nb, n_active, median):
+    """(lens, active, tables) of B slots over a pool of N blocks: n_active
+    slots at lengths drawn around ``median`` (15% spread; all at the
+    table's last position where ``median`` reaches its width), each with
+    its own blocks, the rest of every table the null block."""
+    width = nb * bs
+    lens = np.clip(rng.normal(median, 0.15 * median, B).astype(int), bs,
+                   width - 1)
+    if median >= width:
+        lens[:] = width - 1
+    active = np.zeros(B, bool)
+    active[rng.choice(B, n_active, replace=False)] = True
+    table = np.zeros((B, nb), np.int64)
+    blocks = rng.permutation(np.arange(1, N))
+    for b in range(B):
+        used = -(-(int(lens[b]) + 1) // bs)
+        table[b, :used] = blocks[b * nb:b * nb + used]
+    return lens, active, table
+
+
+def paged_decode_phase(torch, llama, LLMServer, prompts):
+    """The paged decode kernel against its plain version and timed at the
+    serve cell's shapes (bound, plain version, SDPA over the gathered
+    layout as a yardstick: the port never calls it), then a paged bf16
+    llama_440m engine whose every decode layer of every step launches it.
+    Returns its kernels-line numbers."""
+    import numpy as np
+
+    from ray_tpu_torch.observability import timeline
+    from ray_tpu_torch.ops import paged_attention as pa
+
+    t0 = time.perf_counter()
+    pa.build_kernels()
+    phase("paged_decode", f"built in {time.perf_counter() - t0:.1f}s")
+    for line in _build_log("paged_decode"):
+        phase("paged_decode", line)
+    N, L, bs, Hkv, G, D = PAGED_DECODE_POOL
+    B, layer, scale = 32, L // 2, D ** -0.5
+    dt, dev = torch.bfloat16, "cuda"
+    pool_k = torch.randn((N, L, bs, Hkv, D), dtype=dt, device=dev)
+    pool_v = torch.randn((N, L, bs, Hkv, D), dtype=dt, device=dev)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    rng = np.random.default_rng(23)
+    out = {}
+    for label, n_active, median, nb in PAGED_DECODE_CASES:
+        width = nb * bs
+        lens, active, table = paged_decode_case(np, rng, B, N, bs, nb,
+                                                n_active, median)
+        q = torch.randn((B, 1, Hkv * G, D), dtype=dt, device=dev)
+        bt, lens_t, active_t = (torch.from_numpy(x).to(dev)
+                                for x in (table, lens, active))
+        args = (q, pool_k, pool_v, layer, bt, lens_t, active_t, scale)
+        attend = pa.PagedDecode(pool_k, pool_v, bt, active_t, Hkv * G, scale)
+        pa.reset_launch_counts()
+        got = attend(q, layer, lens_t)
+        ref = pa.paged_decode_reference(*args)
+        torch.cuda.synchronize()
+        on = active_t
+        err = ((got[on].float() - ref[on].float()).norm()
+               / ref[on].float().norm()).item()
+        zeros = not got[~on].any().item()
+        launches = dict(pa.launch_counts)
+        splits, split_len = attend.splits, attend.split_len
+        ms = time_ms(lambda: attend(q, layer, lens_t))
+        plain_ms = time_ms(lambda: pa.paged_decode_reference(*args),
+                           reps=3, rounds=3)
+        # The yardstick: SDPA on the layout already gathered (the gather
+        # not timed), each slot's keys 0..p by a mask, GQA by enable_gqa.
+        k = pool_k[:, layer].index_select(0, bt.reshape(-1)).view(
+            B, width, Hkv, D).transpose(1, 2)
+        v = pool_v[:, layer].index_select(0, bt.reshape(-1)).view(
+            B, width, Hkv, D).transpose(1, 2)
+        mask = (torch.arange(width, device=dev)[None, :]
+                <= lens_t[:, None])[:, None, None, :]
+        qh = q.transpose(1, 2)
+        library_ms = time_ms(lambda: sdpa(qh, k, v, attn_mask=mask,
+                                          scale=scale, enable_gqa=True))
+        flops, nbytes, b_ms, b_by = paged_decode_cost(
+            lens, active, nb, bs, Hkv, G, D)
+        phase("paged_decode", f"{label} (B={B}, nb={nb}, bs={bs}, Hkv={Hkv},"
+              f" G={G}, D={D}, bf16; {splits} splits of {split_len} keys): "
+              f"{ms:.4f} ms ({nbytes / ms / 1e9:.2f} TB/s), bound "
+              f"{b_ms:.4f} ms ({b_by}; {nbytes:.4e} B, {flops:.4e} FLOP; "
+              f"{100 * b_ms / ms:.1f}% of it), plain {plain_ms:.4f} ms, "
+              f"sdpa on the gathered layout {library_ms:.4f} ms; rel err "
+              f"{err:.3e} (tol {TOL_PAGED_DECODE_REL}), inactive zero "
+              f"{zeros}, launches {launches}")
+        if err > TOL_PAGED_DECODE_REL or not zeros:
+            fail(f"paged_decode disagrees with its plain version at {label}")
+        if launches != {"paged_decode": 1,
+                        "paged_decode_combine": int(splits > 1)}:
+            fail(f"paged_decode launched {launches} for one call")
+        out[label] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                          bound_by=b_by, library_ms=library_ms, err=err)
+        del q, got, ref, k, v, mask, qh, args, attend
+    del pool_k, pool_v
+    torch.cuda.empty_cache()
+
+    # The engine: every layer of every decode step goes through it.
+    server = LLMServer(model_preset="llama_440m", max_slots=8, max_len=512,
+                       seed=0, paged=True, block_size=16)
+    try:
+        pa.reset_launch_counts()
+        t_mark = time.time() * 1e6
+        outs, wall = run_requests(server, prompts, 32)
+        chunks = [e for e in timeline.export_timeline(None)
+                  if e["name"] == "serve.decode_chunk" and e.get("ph") == "X"
+                  and e["ts"] >= t_mark]
+        steps = sum(e["args"]["k"] for e in chunks)
+        kinds = sorted({e["args"]["kv"] for e in chunks})
+        n_layers = server.cfg.n_layers
+        launches = dict(pa.launch_counts)
+    finally:
+        server.shutdown()
+    phase("paged_decode", f"llama_440m paged bf16, 8 requests x 32 tokens in "
+          f"{wall:.3f}s: {len(chunks)} chunks, {steps} steps x {n_layers} "
+          f"layers, kv {kinds}, launches {launches}")
+    if any(len(o["tokens"]) != 32 for o in outs) or kinds != ["pool"] \
+            or launches["paged_decode"] != steps * n_layers:
+        fail(f"the paged engine's decode launched {launches} for {steps} "
+             f"steps x {n_layers} layers (kv {kinds})")
+    best = out[PAGED_DECODE_CASES[0][0]]
+    return dict(best, launches=launches["paged_decode"])
+
+
+def _build_log(lib):
+    """The ptxas lines of ``lib``'s last build: each kernel instance's
+    registers and spills."""
+    from ray_tpu_torch.ops import _build
+
+    return [line.strip() for line in
+            _build.build_logs.get(lib, "").splitlines()
+            if "registers" in line or "spill" in line
+            or "Compiling entry" in line]
 
 
 def paged_phase(torch, llama, fa, LLMServer, prompts, profile_dir):
@@ -5734,6 +5906,9 @@ def main() -> None:
 
     # 6b. The paged serving plane.
     paged_phase(torch, llama, fa, LLMServer, prompts, profile_dir)
+    # 6c. The paged decode kernel at the serve cell's shapes, and the paged
+    # engine's decode through it.
+    paged_decode = paged_decode_phase(torch, llama, LLMServer, prompts)
 
     # 17. The local runtime and the Serve plane on the card.
     runtime_launches = runtime_phase(fa, torch, llama, LLMServer)
@@ -6026,6 +6201,16 @@ def main() -> None:
                 "ms": t["ms"], "plain_ms": t["plain_ms"],
                 "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
                 "library_ms": t["library_ms"]})
+    kernels.append({
+        "name": "paged_decode", "route": "cuda", "design": DESIGN_PAGED,
+        "source": "ray_tpu_torch/ops/csrc/paged_decode.cu",
+        "replaces": "none (the JAX package's paged decode gathers in jnp)",
+        "launches": paged_decode["launches"],
+        "rel_err": paged_decode["err"], "ms": paged_decode["ms"],
+        "plain_ms": paged_decode["plain_ms"],
+        "bound_ms": paged_decode["bound_ms"],
+        "bound_by": paged_decode["bound_by"],
+        "library_ms": paged_decode["library_ms"]})
     for k in kernels:
         if not k["launches"]:
             fail(f"{k['name']} was not launched on its main path")

@@ -13,20 +13,26 @@
 - PAGED plane (``paged=True``; Orca OSDI '22 + vLLM SOSP '23): a
   block-major pool of ``block_size``-token blocks (``num_blocks``,
   block 0 reserved), a per-request block table (``serve/kv_cache.py``)
-  feeding a block-GATHERING attention read at static block-count
-  buckets, free-list allocation with typed ``BackPressureError``
-  exhaustion, and copy-on-write prefix sharing through a hash-trie
-  prefix cache: a warm prompt prefills only its suffix, attending the
-  gathered shared blocks.  The gathered layout equals the dense layout
-  position for position, so both planes decode the same tokens.  Pool
+  padded to static block-count buckets, free-list allocation with typed
+  ``BackPressureError`` exhaustion, and copy-on-write prefix sharing
+  through a hash-trie prefix cache: a warm prompt prefills only its
+  suffix, attending the gathered shared blocks.  A decode step on an
+  unquantized pool writes each slot's new K/V row into its block and
+  attends the pool in place through the tables
+  (``ops/paged_attention.py``: a hand-written kernel on the card);
+  quantized pools and the spec verify pass gather the tables' blocks
+  into the dense layout and scatter them back.  Both read what the dense
+  layout holds position for position, so both planes decode the same
+  tokens.  Pool
   pressure preempts the latest-deadline request (recompute on readmit).
   Block-table padding names the null block 0: a padding gather reads it
   (attention masks it) and a padding scatter writes it (never read
   unmasked), so no out-of-range index is ever launched.
 - QUANTIZED KV blocks (``kv_quant="int8"|"fp8"``): the pool stores
-  8-bit values with one f32 scale per KV row; the gather dequantizes,
-  every write requantizes (amax maps onto +-qmax, so the round trip is
-  idempotent).  fp8 blocks move through a ``uint8`` view of their bytes.
+  8-bit values with one f32 scale per KV row; the gather dequantizes
+  (so their decode chunks gather), every write requantizes (amax maps
+  onto +-qmax, so the round trip is idempotent).  fp8 blocks move
+  through a ``uint8`` view of their bytes.
 - SPECULATIVE decoding (``spec_k > 0``, paged plane): a draft (the
   target's first ``draft_layers`` layers, or ``draft_preset``) proposes
   ``spec_k`` greedy tokens, the target verifies them in one pass over
@@ -94,6 +100,7 @@ from ..observability.metrics import (kv_cache_counters, metrics_summary,
                                      overload_counters)
 from ..exceptions import BackPressureError, DeadlineExceededError
 from ..models import llama
+from ..ops.paged_attention import PagedDecode
 from .kv_cache import (NULL_BLOCK, BlockTable, KVBlockAllocator, PrefixCache,
                        kv_quant_info)
 
@@ -327,14 +334,14 @@ class LLMServer:
         return torch.argmax(last_logits, dim=-1)
 
     @torch.no_grad()
-    def _decode_k(self, cache, ov_tok, ov_len, ov_mask, active, k,
-                  s_active):
-        """``k`` greedy steps over every slot against the first
-        ``s_active`` rows of ``cache``; returns the (k, B) tokens on the
-        device and leaves the carries in ``_tok_dev``/``_len_dev``."""
+    def _decode_k(self, step, ov_tok, ov_len, ov_mask, k):
+        """``k`` greedy ``step``s over every slot (a step of
+        :meth:`_make_decode_step` or :meth:`_make_paged_step`) from the
+        carries, overridden where ``ov_mask``; returns the (k, B) tokens
+        on the device and leaves the carries in
+        ``_tok_dev``/``_len_dev``."""
         tok = torch.where(ov_mask, ov_tok, self._tok_dev)
         lens = torch.where(ov_mask, ov_len, self._len_dev)
-        step = self._make_decode_step(self.params, cache, active, s_active)
         toks = []
         for _ in range(k):
             tok, lens = step(tok, lens)
@@ -344,13 +351,14 @@ class LLMServer:
 
     def _make_decode_step(self, params, cache, active, s_active, cfg=None):
         """The per-token decode step, shared by the dense cache, the
-        paged plane's gathered layout and the draft's cache: K/V write
-        at each active slot's current position, attention over the first
-        ``s_active`` rows, greedy argmax fed back.  ``cache`` tensors are
-        (L, B, S, Hkv, D) whose last row is a trash row: only ACTIVE
-        slots write, as in the reference, so a free slot's stale carry
-        (or a position past ``s_active``) writes there and a slot's rows
-        hold only what its own prefill and steps put there.  ``cfg``
+        paged plane's gathered layout (quantized pools) and the draft's
+        cache: K/V write at each active slot's current position,
+        attention over the first ``s_active`` rows, greedy argmax fed
+        back.  ``cache`` tensors are (L, B, S, Hkv, D) whose last row is
+        a trash row: only ACTIVE slots write, as in the reference, so a
+        free slot's stale carry (or a position past ``s_active``) writes
+        there and a slot's rows hold only what its own prefill and steps
+        put there.  ``cfg``
         overrides the target config (the draft)."""
         cfg = cfg or self.cfg
         bidx = torch.arange(self.max_slots, device=self.device)
@@ -373,6 +381,54 @@ class LLMServer:
                 attn = llama._cache_attend(q, ck[:, :s_active],
                                            cv[:, :s_active], lens[:, None],
                                            scale)
+                x = llama._attn_out_mlp(x, attn, layer, cfg)
+            x = llama.rms_norm(x, params["final_norm"], cfg.norm_eps)
+            logits = llama.matmul(x, head)[:, 0]
+            nxt = torch.argmax(logits, dim=-1)
+            nxt = torch.where(active, nxt, tok)
+            return nxt, lens + active.long()
+
+        return step
+
+    def _make_paged_step(self, active, bt):
+        """The decode step on an unquantized pool itself, the sibling of
+        :meth:`_make_decode_step` (the same ``_qkv_rope`` and
+        ``_attn_out_mlp``): each layer writes the step's K/V row at
+        ``(bt[s, p // bs], layer, p % bs)`` of the pool, then attends every
+        slot's table in place (``ops/paged_attention``).  Inactive slots,
+        positions past the table and positions at or past ``max_len``
+        write the null block, as padding does; nothing is gathered or
+        scattered."""
+        cfg, params = self.cfg, self.params
+        bs, L = self.block_size, cfg.n_layers
+        limit = min(bt.shape[1] * bs, self.max_len)
+        bidx = torch.arange(self.max_slots, device=self.device)
+        # Row r of layer 0 in the pool seen as (N * L * bs, Hkv, D); layer
+        # i's row is r + i * bs.
+        layer_rows = torch.arange(L, device=self.device)[:, None] * bs
+        pool_k, pool_v = self.pool["k"], self.pool["v"]
+        rows_k = pool_k.view(-1, cfg.n_kv_heads, cfg.head_dim)
+        rows_v = pool_v.view(-1, cfg.n_kv_heads, cfg.head_dim)
+        attend = PagedDecode(pool_k, pool_v, bt, active, cfg.n_heads,
+                             cfg.head_dim ** -0.5)
+        head = llama._head(params, cfg)
+        # Unbound once a chunk, not once a step (~0.9 ms of host time a
+        # step at 32 layers on an H100's host).
+        layers = llama._layers(params)
+
+        def step(tok, lens):
+            x = params["embed_tokens"][tok][:, None]
+            sin, cos = llama.rope_table(lens[:, None], cfg.head_dim,
+                                        cfg.rope_theta)
+            live = active & (lens < limit)
+            pos = torch.where(live, lens, 0)
+            blk = torch.where(live, bt[bidx, pos // bs], NULL_BLOCK)
+            rows = blk * (L * bs) + pos % bs + layer_rows  # (L, B)
+            for i, layer in enumerate(layers):
+                q, kk, vv = llama._qkv_rope(x, layer, sin, cos, cfg)
+                rows_k.index_copy_(0, rows[i], kk[:, 0])  # in place
+                rows_v.index_copy_(0, rows[i], vv[:, 0])
+                attn = attend(q, i, lens)
                 x = llama._attn_out_mlp(x, attn, layer, cfg)
             x = llama.rms_norm(x, params["final_norm"], cfg.norm_eps)
             logits = llama.matmul(x, head)[:, 0]
@@ -558,12 +614,18 @@ class LLMServer:
 
     @torch.no_grad()
     def _decode_paged(self, ov_tok, ov_len, ov_mask, active, bt, k):
-        """Gather the tables' blocks, run ``k`` decode steps on the
-        gathered layout, scatter every gathered block back."""
+        """``k`` decode steps over the tables ``bt``.  An unquantized pool
+        is read and written in place (:meth:`_make_paged_step`).  A
+        quantized one dequantizes in :meth:`_gather`: its tables' blocks
+        are gathered, decoded in the dense layout and scattered back."""
+        if self._kv_fmt is None:
+            return self._decode_k(self._make_paged_step(active, bt), ov_tok,
+                                  ov_len, ov_mask, k)
         S = bt.shape[1] * self.block_size
         cache = {name: self._gather(name, bt, trash_row=True)
                  for name in ("k", "v")}
-        toks = self._decode_k(cache, ov_tok, ov_len, ov_mask, active, k, S)
+        step = self._make_decode_step(self.params, cache, active, S)
+        toks = self._decode_k(step, ov_tok, ov_len, ov_mask, k)
         for name in ("k", "v"):
             self._scatter(name, bt, cache[name])
         return toks
@@ -698,8 +760,9 @@ class LLMServer:
         ov = torch.zeros(B, dtype=torch.long, device=dev)
         if not self.paged:
             for sa in self.decode_buckets:
-                self._decode_k(self.cache, ov, ov, active, active,
-                               self.decode_chunk, int(sa))
+                step = self._make_decode_step(self.params, self.cache,
+                                              active, int(sa))
+                self._decode_k(step, ov, ov, active, self.decode_chunk)
         else:
             for nb in self._nb_buckets:
                 bt = torch.full((B, nb), self._pad_block, dtype=torch.long,
@@ -1456,11 +1519,13 @@ class LLMServer:
                 bt = self._table_bt(snapshot)
                 args["nb"] = bt.shape[1]
                 args["live_blocks"] = self.allocator.used_blocks
+                args["kv"] = "gather" if self._kv_fmt else "pool"
                 toks = self._decode_paged(*ov_args, to_device(bt, dev), k)
             else:
                 args["bucket"] = self._decode_bucket()
-                toks = self._decode_k(self.cache, *ov_args, k,
-                                      args["bucket"])
+                step = self._make_decode_step(self.params, self.cache,
+                                              ov_args[3], args["bucket"])
+                toks = self._decode_k(step, *ov_args[:3], k)
             toks = _HostCopy(toks)
         self._ov_mask[:] = False
         for s, _req, _len0 in snapshot:

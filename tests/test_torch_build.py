@@ -12,6 +12,7 @@ import pytest
 
 from ray_tpu_torch.ops import _build
 from ray_tpu_torch.ops import flash_attention as tfa
+from ray_tpu_torch.ops import paged_attention as pa
 
 
 def _kernel_tests():
@@ -28,19 +29,23 @@ def _kernel_tests():
 _CU = sorted(p.name for p in _build.CSRC.glob("*.cu"))
 
 
+# Every kernel library of the port: {name: (sources, signatures)}.
+_ALL_LIBS = {**tfa._LIBS, **pa._LIBS}
+
+
 @pytest.mark.parametrize("cu", _CU)
 def test_every_include_is_listed_in_its_library(cu):
-    """A header a .cu file includes is among its library's sources, so
-    that an edit to the header changes the library's hash and rebuilds
-    it."""
-    libs = [sources for sources, _ in tfa._LIBS.values() if cu in sources]
+    """A .cu file belongs to one library, and the headers of csrc/ it
+    includes are exactly the headers its library lists, so that an edit
+    to a header changes the library's hash and rebuilds it."""
+    libs = [sources for sources, _ in _ALL_LIBS.values() if cu in sources]
     assert len(libs) == 1, f"{cu} belongs to {len(libs)} libraries"
     includes = re.findall(r'^#include "([^"]+)"',
                           (_build.CSRC / cu).read_text(), re.M)
-    assert includes, f"{cu} includes no header of csrc/"
     for header in includes:
         assert (_build.CSRC / header).exists(), header
         assert header in libs[0], f"{cu} includes {header}, not listed"
+    assert set(includes) == {s for s in libs[0] if not s.endswith(".cu")}
 
 
 def test_library_path_follows_the_header(tmp_path, monkeypatch):
@@ -77,10 +82,10 @@ def test_build_compiles_only_the_cu_files(monkeypatch, tmp_path):
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
     monkeypatch.setattr(_build, "nvcc_path", lambda: "nvcc")
     monkeypatch.setattr(_build.subprocess, "run", fake_run)
-    for name, (sources, _) in tfa._LIBS.items():
+    for name, (sources, _) in _ALL_LIBS.items():
         out = _build.build(name, sources)
         assert out.exists()
-    assert len(seen) == len(tfa._LIBS)
+    assert len(seen) == len(_ALL_LIBS)
     for cmd in seen:
         units = [a for a in cmd if a.endswith((".cu", ".cuh"))]
         assert units and all(u.endswith(".cu") for u in units)
